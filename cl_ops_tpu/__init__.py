@@ -1,9 +1,10 @@
-"""cl_ops_tpu — TPU-native data-parallel primitives and query execution.
+"""cl_ops_tpu — data-parallel primitives and query execution in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
-OpenCL library `nunofachada/cl_ops` (sorting, prefix-sum scan, per-stream PRNG),
-re-designed TPU-first and extended into a vectorized query-execution engine
-(filter, hash aggregate, hash join) that scales over device meshes.
+A JAX/XLA/Pallas framework with the capabilities of the reference OpenCL
+library `nunofachada/cl_ops` (sorting, prefix-sum scan, per-stream PRNG),
+extended into a vectorized query-execution engine (filter, hash aggregate,
+hash join) that scales over device meshes. It runs on NVIDIA GPUs (the one
+hand kernel compiles through Triton) and, for the tests, on the CPU.
 
 Layer map (new framework):
   core/     — dtype registry, op registries, errors        (ref L1: common/)

@@ -48,8 +48,6 @@ def main(argv=None):
     import numpy as np
 
     import jax
-    from cl_ops_tpu.utils.platform import honor_env_platform
-    honor_env_platform()
     jax.config.update("jax_enable_x64", True)  # 64-bit generator states
     from cl_ops_tpu.ops import rng as rng_mod
 

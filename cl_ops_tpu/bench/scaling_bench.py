@@ -25,15 +25,16 @@ image, run with virtual devices to validate the sweep mechanics:
   JAX_PLATFORMS=cpu python -m cl_ops_tpu.bench.scaling_bench --virtual 8 \\
       --op scan,sort,join,aggregate -n 16 -r 3
 
-On a real pod slice, omit --virtual and the mesh prefixes real chips
-(ICI/DCN collectives ride the hardware fabric).
+On a multi-GPU host, omit --virtual and the mesh prefixes the real cards
+(one process drives all of them; collectives ride NVLink through NCCL).
 
-`--multiproc P` adds the N-HOST leg of the north-star sweep (1 chip /
-1 host / N hosts): the bench re-launches itself as P jax.distributed
-worker processes (P simulated hosts x --virtual devices each, Gloo as
-the DCN stand-in — parallel/multiproc.py), measures every operator over
-the process-spanning global mesh at 1 and P hosts, and reports rows/s
-plus weak-scaling efficiency per host:
+`--multiproc P` is a CPU SIMULATION of the N-host leg of the north-star
+sweep (1 device / 1 host / N hosts): the bench re-launches itself as P
+jax.distributed worker processes, each forced onto the CPU with --virtual
+devices (Gloo as the network stand-in — parallel/multiproc.py), measures
+every operator over the process-spanning global mesh at 1 and P hosts,
+and reports rows/s plus weak-scaling efficiency per host. It never points
+several processes at one card:
 
   python -m cl_ops_tpu.bench.scaling_bench --multiproc 2 --virtual 4 \\
       --op scan,join -n 16 -r 3
@@ -63,9 +64,6 @@ def build_parser():
                    help="aggregate: total distinct keys (default 65536)")
     p.add_argument("--build-frac", type=int, default=16,
                    help="join: build side = probe rows / build_frac")
-    p.add_argument("--pallas", default="auto", choices=["auto", "0", "1"],
-                   help="local Pallas kernels in the distributed operators "
-                        "(auto = on TPU backends)")
     p.add_argument("--virtual", type=int, default=0,
                    help="simulate N CPU devices (sets "
                         "xla_force_host_platform_device_count; must be the "
@@ -119,8 +117,7 @@ def _mp_parent(args) -> int:
                "--op", args.op, "-n", str(args.log2_rows),
                "-r", str(args.runs), "-s", str(args.rng_seed),
                "--scaling", args.scaling, "--groups", str(args.groups),
-               "--build-frac", str(args.build_frac),
-               "--pallas", args.pallas]
+               "--build-frac", str(args.build_frac)]
         if args.no_check:
             cmd.append("--no-check")
         procs = [subprocess.Popen(cmd + ["--mp-worker", str(pid)],
@@ -165,7 +162,7 @@ def _mp_parent(args) -> int:
 
 def _mp_worker(args) -> int:
     """One simulated host: join the process group, run the sweep ops over
-    the DCN-spanning global mesh, print timings from worker 0."""
+    the process-spanning global mesh, print timings from worker 0."""
     from cl_ops_tpu.parallel import multiproc
     multiproc.init_process(args.mp_worker, args.multiproc,
                            coordinator=f"localhost:{args.mp_port}")
@@ -181,7 +178,6 @@ def _mp_worker(args) -> int:
     pid, nproc = args.mp_worker, args.multiproc
     mesh = multiproc.global_mesh()
     k = mesh.shape["data"]
-    use_pallas = {"auto": None, "0": False, "1": True}[args.pallas]
     ops = [o.strip() for o in args.op.split(",") if o.strip()]
     rng = np.random.RandomState(args.rng_seed)
     rows_base = 1 << args.log2_rows
@@ -198,8 +194,7 @@ def _mp_worker(args) -> int:
         if op == "scan":
             x = rng.randint(0, 128, size=n, dtype=np.uint32)
             gx = local(x)
-            fn = jax.jit(lambda a: dist_scan(a, mesh, sum_dtype=jnp.uint32,
-                                             use_pallas=use_pallas))
+            fn = jax.jit(lambda a: dist_scan(a, mesh, sum_dtype=jnp.uint32))
             fargs = (gx,)
 
             def check(out, x=x):
@@ -210,8 +205,7 @@ def _mp_worker(args) -> int:
         elif op == "sort":
             x = common.rand_array(np.uint32, n, args.rng_seed)
             gx = local(x)
-            fn = jax.jit(lambda a: dist_sort(a, mesh,
-                                             use_pallas=use_pallas))
+            fn = jax.jit(lambda a: dist_sort(a, mesh))
             fargs = (gx,)
 
             def check(out, x=x):
@@ -223,7 +217,7 @@ def _mp_worker(args) -> int:
             per_chip_groups = min(args.groups, 2 * args.groups // k + 256)
             fn = jax.jit(lambda a, b: dist_group_aggregate(
                 a, b, mesh, num_groups=per_chip_groups,
-                capacity=cap_for(n // k), use_pallas=use_pallas,
+                capacity=cap_for(n // k),
                 check="defer"))
             fargs = (local(keys), local(vals))
 
@@ -243,7 +237,7 @@ def _mp_worker(args) -> int:
                 (bk[blo:bhi] * 2 + 1).astype(np.int32), mesh)
             fn = jax.jit(lambda b, v, p: dist_hash_join(
                 b, v, p, mesh, capacity_build=cap_for(nb // k),
-                capacity_probe=cap_for(n // k), use_pallas=use_pallas,
+                capacity_probe=cap_for(n // k),
                 check="defer"))
             fargs = (gb, gv, local(pk))
 
@@ -261,7 +255,7 @@ def _mp_worker(args) -> int:
             order = rng.randint(0, 1 << 20, size=n).astype(np.int32)
             vals = np.ones(n, np.int32)
             fn = jax.jit(lambda a, o, v: dist_window_cols(
-                a, o, (v,), ("sum",), mesh, use_pallas=use_pallas))
+                a, o, (v,), ("sum",), mesh))
             fargs = (local(keys), local(order), local(vals))
 
             def check(out, keys=keys):
@@ -276,8 +270,7 @@ def _mp_worker(args) -> int:
             from cl_ops_tpu.parallel import dist_top_k
             x = common.rand_array(np.uint32, n, args.rng_seed)
             kk = min(128, n // k)
-            fn = jax.jit(lambda a: dist_top_k(a, kk, mesh,
-                                              use_pallas=use_pallas))
+            fn = jax.jit(lambda a: dist_top_k(a, kk, mesh))
             fargs = (local(x),)
 
             def check(out, x=x):
@@ -285,8 +278,7 @@ def _mp_worker(args) -> int:
                 assert np.array_equal(np.asarray(tv), np.sort(x)[:kk])
         else:
             raise SystemExit(f"unknown op {op!r}")
-        secs = common.time_async(fn, fargs, args.runs,
-                                 lambda out: jax.block_until_ready(out))
+        secs = common.time_async(fn, fargs, args.runs)
         if not args.no_check:
             check(fn(*fargs))
         if pid == 0:
@@ -306,8 +298,6 @@ def main(argv=None):
         os.environ["XLA_FLAGS"] = (
             f"{flags} --xla_force_host_platform_device_count={args.virtual}")
     import jax
-    from cl_ops_tpu.utils.platform import honor_env_platform
-    honor_env_platform()
     import jax.numpy as jnp
     import numpy as np
 
@@ -317,7 +307,6 @@ def main(argv=None):
                                      dist_scan, dist_sort)
     from cl_ops_tpu.parallel.mesh import make_mesh, put_sharded
 
-    use_pallas = {"auto": None, "0": False, "1": True}[args.pallas]
     ops = [o.strip() for o in args.op.split(",") if o.strip()]
     avail = len(jax.devices())
     counts = _device_counts(args.devices, avail)
@@ -328,7 +317,6 @@ def main(argv=None):
         print(f"only {avail} devices available; need {need}",
               file=sys.stderr)
         return 1
-    sync = common.default_sync()
     rng = np.random.RandomState(args.rng_seed)
     rows_base = 1 << args.log2_rows
 
@@ -342,13 +330,12 @@ def main(argv=None):
             raise SystemExit(f"rows {n} not divisible by {k} devices")
         shard = n // k
         if op == "scan":
-            # u32 sums (u64 needs jax_enable_x64 off-TPU); the reference
+            # u32 sums (u64 would need jax_enable_x64); the reference
             # scan bench likewise keeps values small to delay overflow
             # (clo_scan_bench.c:219-224) — and the check wraps mod 2^32.
             x = put_sharded(rng.randint(0, 128, size=n, dtype=np.uint32),
                             mesh)
-            fn = jax.jit(lambda a: dist_scan(a, mesh, sum_dtype=jnp.uint32,
-                                             use_pallas=use_pallas))
+            fn = jax.jit(lambda a: dist_scan(a, mesh, sum_dtype=jnp.uint32))
 
             def check(out):
                 xs = np.asarray(x, np.uint64)
@@ -358,8 +345,7 @@ def main(argv=None):
         if op == "sort":
             x = put_sharded(common.rand_array(np.uint32, n,
                                               args.rng_seed), mesh)
-            fn = jax.jit(lambda a: dist_sort(a, mesh,
-                                             use_pallas=use_pallas))
+            fn = jax.jit(lambda a: dist_sort(a, mesh))
 
             def check(out):
                 assert np.array_equal(np.sort(np.asarray(x)),
@@ -374,7 +360,7 @@ def main(argv=None):
             per_chip_groups = min(args.groups, 2 * args.groups // k + 256)
             fn = jax.jit(lambda a, b: dist_group_aggregate(
                 a, b, mesh, num_groups=per_chip_groups,
-                capacity=cap_for(shard, k), use_pallas=use_pallas,
+                capacity=cap_for(shard, k),
                 check="defer"))
 
             def check(out):
@@ -392,7 +378,7 @@ def main(argv=None):
             pka = put_sharded(pk, mesh)
             fn = jax.jit(lambda b, v, p: dist_hash_join(
                 b, v, p, mesh, capacity_build=cap_for(nb // k, k),
-                capacity_probe=cap_for(shard, k), use_pallas=use_pallas,
+                capacity_probe=cap_for(shard, k),
                 check="defer"))
 
             def check(out):
@@ -409,7 +395,7 @@ def main(argv=None):
             vals = np.ones(n, np.int32)
             ka, oa, va = (put_sharded(a, mesh) for a in (keys, order, vals))
             fn = jax.jit(lambda a, o, v: dist_window_cols(
-                a, o, (v,), ("sum",), mesh, use_pallas=use_pallas))
+                a, o, (v,), ("sum",), mesh))
 
             def check(out):
                 (sums,) = out
@@ -425,8 +411,7 @@ def main(argv=None):
             x = put_sharded(common.rand_array(np.uint32, n,
                                               args.rng_seed), mesh)
             kk = min(128, shard)
-            fn = jax.jit(lambda a: dist_top_k(a, kk, mesh,
-                                              use_pallas=use_pallas))
+            fn = jax.jit(lambda a: dist_top_k(a, kk, mesh))
 
             def check(out):
                 (tv,) = out
@@ -442,7 +427,7 @@ def main(argv=None):
         for k in counts:
             mesh = make_mesh(k)
             fn, fargs, n, check = make_case(op, k, mesh)
-            secs = common.time_async(fn, fargs, args.runs, sync)
+            secs = common.time_async(fn, fargs, args.runs)
             if not args.no_check:
                 check(fn(*fargs))
             rate = common.throughput_m(n, args.runs, secs)  # Mrows/s

@@ -34,8 +34,6 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     import jax
-    from cl_ops_tpu.utils.platform import honor_env_platform
-    honor_env_platform()
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 
@@ -45,15 +43,12 @@ def main(argv=None):
     s = scan_mod.scan_new(args.algorithm, args.alg_options,
                           elem_dtype=args.elem_type,
                           sum_dtype=args.sum_type)
-    sync = common.default_sync()
+    # roofline accounting (a device metric: GPU runs only)
     traffic = None
-    if args.algorithm in ("blelloch", "lookback"):
-        from cl_ops_tpu.core.registry import parse_options
-        from cl_ops_tpu.ops.scan.kernels import scan_traffic_bytes
-        br = int(parse_options(args.alg_options).get("block_rows", 512))
-        traffic = lambda nn: scan_traffic_bytes(  # noqa: E731
-            nn, s.elem_dtype, s.sum_dtype, br,
-            single_pass=args.algorithm == "lookback")
+    if args.algorithm == "blelloch" and jax.devices()[0].platform == "gpu":
+        from cl_ops_tpu.ops.scan.kernels import scan_least_bytes
+        traffic = lambda nn: scan_least_bytes(  # noqa: E731
+            nn, s.elem_dtype, s.sum_dtype)
     rows = []
     print(f"# algorithm: {args.algorithm}  type: {args.elem_type} -> "
           f"{s.sum_dtype}  runs: {args.runs}")
@@ -68,8 +63,7 @@ def main(argv=None):
         else:
             host = rng.rand(n).astype(s.elem_dtype)
         dev = jax.device_put(host)
-        secs = common.time_async(s.scan_with_device_data, (dev,), args.runs,
-                                 sync)
+        secs = common.time_async(s.scan_with_device_data, (dev,), args.runs)
         mvals = common.throughput_m(n, args.runs, secs)
         if args.no_check:
             check = "skipped"
@@ -96,7 +90,7 @@ def main(argv=None):
             row.update(roofline_row(traffic(n), secs / args.runs))
         row["check"] = check
         print(f"{n:>12} {mvals:>12.1f} {secs / args.runs * 1e3:>10.2f} "
-              f"{row.get('gb_s', 0):>8.1f} {row.get('roofline_frac', 0):>6.2f}"
+              f"{row.get('gb_s', 0):>8.1f} {row.get('roofline_frac', 0):>6.3f}"
               f"  {check}")
         rows.append(row)
         if check == "FAILED":

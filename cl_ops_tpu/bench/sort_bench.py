@@ -4,8 +4,8 @@ Mirrors the reference CLI surface (`src/benchmarks/clo_sort_bench.c:49-80`):
 algorithm, algorithm options, runs, element type, size sweep 2^minpo2..
 2^maxpo2, RNG seed, TSV output, and a per-run host verification pass
 (`clo_sort_bench.c:216-227`). The lws/device/compiler-opts flags map to
-their TPU analogs: block options ride --alg-options; the device is the
-default JAX device.
+their analogs here: options ride --alg-options; the device is the default
+JAX device.
 
 Usage:
   python -m cl_ops_tpu.bench.sort_bench -a abitonic -r 5 --maxpo2 20
@@ -40,8 +40,6 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     import jax
-    from cl_ops_tpu.utils.platform import honor_env_platform
-    honor_env_platform()
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 
@@ -50,16 +48,14 @@ def main(argv=None):
 
     sorter = sort_mod.sort_new(args.algorithm, args.alg_options,
                                elem_dtype=args.elem_type)
-    sync = common.default_sync()
-    # roofline accounting only for the modeled flagship schedule
+    # roofline accounting against the least bytes a sort moves (a device
+    # metric: GPU runs only)
     traffic = None
-    if args.algorithm == "abitonic":
-        from cl_ops_tpu.core.registry import parse_options
+    if jax.devices()[0].platform == "gpu":
+        from cl_ops_tpu.ops.exec.psort import sort_traffic_bytes
         from cl_ops_tpu.ops.sort import keys as keymod
-        from cl_ops_tpu.ops.sort.bitonic import abitonic_traffic_bytes
-        opts = parse_options(args.alg_options)
         ncols = keymod.num_limbs(sorter.elem_dtype) + (1 if args.kv else 0)
-        traffic = lambda nn: abitonic_traffic_bytes(nn, ncols, opts)  # noqa
+        traffic = lambda nn: sort_traffic_bytes(nn, ncols)  # noqa: E731
     rows = []
     print(f"# algorithm: {args.algorithm}  type: {args.elem_type}  "
           f"runs: {args.runs}")
@@ -75,7 +71,7 @@ def main(argv=None):
             fn, fargs = sorter.sort_with_device_data, (dev, vals)
         else:
             fn, fargs = sorter.sort_with_device_data, (dev,)
-        secs = common.time_async(fn, fargs, args.runs, sync)
+        secs = common.time_async(fn, fargs, args.runs)
         mkeys = common.throughput_m(n, args.runs, secs)
         if args.no_check:
             check = "skipped"
@@ -98,7 +94,7 @@ def main(argv=None):
             row.update(roofline_row(traffic(n), secs / args.runs))
         row["check"] = check
         print(f"{n:>12} {mkeys:>12.1f} {secs / args.runs * 1e3:>10.2f} "
-              f"{row.get('gb_s', 0):>8.1f} {row.get('roofline_frac', 0):>6.2f}"
+              f"{row.get('gb_s', 0):>8.1f} {row.get('roofline_frac', 0):>6.3f}"
               f"  {check}")
         rows.append(row)
         if check == "FAILED":

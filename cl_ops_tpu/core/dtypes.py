@@ -1,6 +1,6 @@
 """Scalar type registry.
 
-TPU-native re-expression of the reference's CloType system
+JAX re-expression of the reference's CloType system
 (`src/cl_ops/common/clo_common.c:54-124`, `clo_common.in.h:108-145`): a table of
 the 11 OpenCL scalar types with name <-> dtype <-> size mappings, plus the
 elem->sum widening rule used by the scan family
@@ -56,7 +56,7 @@ _TYPE_TABLE: tuple[TypeInfo, ...] = (
 _BY_NAME = {t.name: t for t in _TYPE_TABLE}
 _BY_DTYPE = {t.dtype: t for t in _TYPE_TABLE}
 
-# TPU-native extras not present in the reference's table but first-class on TPU.
+# An extra not present in the reference's table: bfloat16, first-class in JAX.
 _BY_NAME["bfloat16"] = TypeInfo("bfloat16", np.dtype(jnp.bfloat16), 2,
                                 is_integer=False, is_signed=True)
 _BY_DTYPE[np.dtype(jnp.bfloat16)] = _BY_NAME["bfloat16"]

@@ -1,6 +1,6 @@
 """Named-implementation registries.
 
-TPU-native re-expression of the reference's vtable plugin registries:
+JAX re-expression of the reference's vtable plugin registries:
 sort impls selected by string name (`src/cl_ops/sort/clo_sort_abstract.c:110-121`),
 scan impls (`src/cl_ops/scan/clo_scan_abstract.c:85-89`), RNG generators
 (`src/cl_ops/rng/clo_rng.c:60-68`).

@@ -1,12 +1,11 @@
 """Exactness witnesses for the deferred (serving-form) operators.
 
 The jit-traceable serving forms — `check="defer"` on the distributed
-join/aggregate (parallel/join.py:82-97), `defer_overflow=True` on the
-banded single-chip join, `rollup_query(defer=True)` — trade the per-call
-host sync of the planning forms for trailing WITNESS outputs: per-chip
-`dropped` row counters and band-overflow flags. The result is exact iff
+join/aggregate, `defer_overflow=True` on the single-chip join — trade the
+per-call host sync of the planning forms for trailing WITNESS outputs:
+per-chip `dropped` row counters and overflow flags. The result is exact iff
 every witness is zero/False; ignoring them is the one remaining
-silent-wrongness avenue (VERDICT r4 weak #5). `verify_deferred` makes
+silent-wrongness avenue. `verify_deferred` makes
 checking them one call — blocking, so keep it OUT of the steady-state
 serving loop: verify once per plan (after capacity planning, after a
 data-distribution shift, or on a sampled cadence), not per request.

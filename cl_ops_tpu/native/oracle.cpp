@@ -1,7 +1,7 @@
 // Native CPU oracle library.
 //
 // Re-implements the reference's device algorithms in portable C++ so the
-// test/bench harness can verify TPU results bit-exactly at native speed:
+// test/bench harness can verify device results bit-exactly at native speed:
 //
 //   * the six RNG generator recurrences (src/cl_ops/rng/clo_rng_lcg.cl:43-59,
 //     clo_rng_xorshift64.cl:43-63, clo_rng_xorshift128.cl:42-59,

@@ -7,13 +7,12 @@ primitives the way satradix composes scan (`clo_sort_satradix.c:296-300`).
 Strategies:
   * "direct"  — keys are already dense group ids in [0, num_groups):
     a scatter-add (segment sum) straight into the accumulator table.
-  * "sort"    — arbitrary keys: sort rows by (key, value) — by default via
-    the flagship Pallas bitonic on normalized limbs — then detect group
-    boundaries and reduce per group with cumsum differences and gathers
-    (NO scatter: XLA scatter on TPU is element-serialized, ~2 Mrows/s).
-    Sorting values as a SECONDARY KEY makes min/max pure gathers too:
-    a group's min is its first value, its max its last. Group results come
-    out in ascending key order — deterministic, unlike hash-bucket order.
+  * "sort"    — arbitrary keys: sort rows by key on normalized limbs, then
+    detect group boundaries and reduce per group with prefix-sum
+    differences and gathers. min/max reduce through a segmented scan, or
+    come free as boundary gathers when values ride in the sort key. Group
+    results come out in ascending key order — deterministic, unlike
+    hash-bucket order.
 
 Aggregations: sum, count, min, max, mean.
 """
@@ -32,8 +31,9 @@ _AGGS = ("sum", "count", "min", "max", "mean")
 
 
 def _seg_ok(dtype) -> bool:
-    """True when segmented min/max scans handle this dtype (see the
-    64-bit/f16 sort fallback note in _boundary_reduce_cols)."""
+    """True when min/max reduce through the segmented scan (32-bit-or-
+    narrower ints and f32); 64-bit and half-precision values take a
+    (group_id, value) sort instead, as _boundary_reduce_cols says."""
     dt = jnp.dtype(dtype)
     return (dt.kind in "iu" and dt.itemsize <= 4) or dt == jnp.float32
 
@@ -42,10 +42,9 @@ def _searchsorted_2level(acc, targets, n: int, block: int = 4096):
     """searchsorted(acc, targets, side="left") for a NONDECREASING acc.
 
     Level 1 searches the block-decimated tails acc[block-1::block] (a
-    ~n/block array — VMEM/cache-resident, so its gathers are cheap);
-    level 2 runs log2(block) binary-search steps bounded inside the one
-    block each target lands in. Same result as the flat searchsorted;
-    ~half the expensive big-array gather steps on the 16M q1 shape.
+    ~n/block array that stays in cache, so its gathers are cheap); level 2
+    binary-searches inside the one block each target lands in. Same
+    result as the flat searchsorted.
     """
     nb = (n + block - 1) // block
     # decimated tails; the last block's tail is acc[n-1]
@@ -57,8 +56,10 @@ def _searchsorted_2level(acc, targets, n: int, block: int = 4096):
                            side="left").astype(jnp.int32)
     lo = jnp.minimum(blk * block, n)
     hi = jnp.minimum(lo + block, n)
-    # invariant: answer in [lo, hi]; all indices < lo have acc < target
-    steps = max(1, (block - 1).bit_length())
+    # invariant: answer in [lo, hi]; all indices < lo have acc < target.
+    # [lo, hi] holds up to block + 1 candidates, so the search needs
+    # block.bit_length() halvings.
+    steps = block.bit_length()
     for _ in range(steps):
         active = lo < hi
         mid = (lo + hi) >> 1
@@ -69,23 +70,16 @@ def _searchsorted_2level(acc, targets, n: int, block: int = 4096):
     return lo.astype(jnp.int32)
 
 
-def _csum(x, use_pallas: bool, dtype=None):
-    """Inclusive prefix sum through the single-pass Pallas carry scan.
+def _csum(x, dtype=None):
+    """Inclusive prefix sum in dtype (default x's).
 
-    The boundary reduce is cumsum-bound after the sort (q1 probe r5:
-    jnp.cumsum measured 3.6 ms per 16M sweep on v5e vs 1.1 for the
-    2-HBM-sweep carry kernel — bench/pipeline_probe.py). Floats and
-    sub-4-byte dtypes keep jnp.cumsum.
+    XLA's own cumsum, not the Triton block scan: XLA fuses the producer
+    of x (a flag test, a cast) into its scan, and on the H100 that made
+    the 256M-row x 1M-group aggregate 13.1 ms against 15.9 ms through the
+    standalone kernel (PERF.md).
     """
-    if dtype is not None:
-        x = x.astype(dtype)
-    dt = jnp.dtype(x.dtype)
-    if use_pallas and dt.kind in "iu" and dt.itemsize in (4, 8):
-        from cl_ops_tpu.ops.scan.kernels import scan_1d
-        from cl_ops_tpu.utils.platform import pallas_interpret
-        return scan_1d(x, sum_dtype=dt, exclusive=False, single_pass=True,
-                       interpret=pallas_interpret())
-    return jnp.cumsum(x)
+    dtype = jnp.dtype(dtype if dtype is not None else x.dtype)
+    return jnp.cumsum(x.astype(dtype), dtype=dtype)
 
 
 def _accumulate(table, group_id, values, agg):
@@ -130,38 +124,30 @@ def group_aggregate_direct(group_ids, values, *, num_groups: int,
     return table
 
 
-@functools.partial(jax.jit, static_argnames=("num_groups", "agg",
-                                             "use_pallas"))
-def _sorted_aggregate_pallas(keys, values, *, num_groups: int, agg: str,
-                             use_pallas: bool):
+@functools.partial(jax.jit, static_argnames=("num_groups", "agg"))
+def _sorted_aggregate(keys, values, *, num_groups: int, agg: str):
     """Sort rows by key with values as PAYLOAD, then boundary-reduce.
 
-    The value column skips the comparator (num_keys — sorts are
-    VPU-bound, so payload columns are measurably cheaper than key
-    columns); min/max then reduce through one segmented scan (2 HBM
-    sweeps) instead of boundary gathers. Only the 64-bit/f16 min/max
-    dtypes the segmented kernel can't carry keep values in the compare
-    prefix (vals_in_key_order boundary-gather form).
+    The value column skips the comparator (num_keys); min/max then reduce
+    through one segmented scan instead of boundary gathers. Only the
+    64-bit/f16 min/max dtypes keep values in the compare prefix
+    (vals_in_key_order boundary-gather form).
     """
     kl = keymod.to_limbs(keys)
     vl = keymod.to_limbs(values)
     need_order = agg in ("min", "max") and not _seg_ok(values.dtype)
     nk = len(kl) + (len(vl) if need_order else 0)
-    out = psort.sort_i32_cols((*kl, *vl), num_keys=nk) \
-        if use_pallas else tuple(
-        jax.lax.sort([*kl, *vl], num_keys=nk))
+    out = psort.sort_i32_cols((*kl, *vl), num_keys=nk)
     skeys = keymod.from_limbs(list(out[:len(kl)]), keys.dtype)
     svals = keymod.from_limbs(list(out[len(kl):]), values.dtype)
     return _boundary_reduce(skeys, svals, num_groups=num_groups, agg=agg,
-                            vals_in_key_order=need_order,
-                            use_pallas=use_pallas)
+                            vals_in_key_order=need_order)
 
 
 @functools.partial(jax.jit, static_argnames=("num_groups", "agg",
-                                             "key_bits", "use_pallas"))
+                                             "key_bits"))
 def group_aggregate_prefix(keys, values, n_valid, *, num_groups: int,
-                           agg: str = "sum", key_bits: int | None = None,
-                           use_pallas: bool = True):
+                           agg: str = "sum", key_bits: int | None = None):
     """Aggregate only the first n_valid rows — the filter_compact composer.
 
     filter_compact returns (count, packed...) with kept rows contiguous at
@@ -189,39 +175,32 @@ def group_aggregate_prefix(keys, values, n_valid, *, num_groups: int,
         packed = (inv << jnp.int32(key_bits)) | keys.astype(jnp.int32)
         cols = (packed, *vl)
         nk = 1 + (len(vl) if need_order else 0)
-        out = psort.sort_i32_cols(cols, num_keys=nk) if use_pallas else \
-            tuple(jax.lax.sort(list(cols), num_keys=nk))
+        out = psort.sort_i32_cols(cols, num_keys=nk)
         skeys = out[0].astype(keys.dtype)
         svals = keymod.from_limbs(list(out[1:]), values.dtype)
         return _boundary_reduce(skeys, svals, num_groups=num_groups,
                                 agg=agg, n_valid=n_valid,
-                                vals_in_key_order=need_order,
-                                use_pallas=use_pallas)
+                                vals_in_key_order=need_order)
     cols = (inv, *kl, *vl)
     nk = 1 + len(kl) + (len(vl) if need_order else 0)
-    out = psort.sort_i32_cols(cols, num_keys=nk) if use_pallas else tuple(
-        jax.lax.sort(list(cols), num_keys=nk))
+    out = psort.sort_i32_cols(cols, num_keys=nk)
     skeys = keymod.from_limbs(list(out[1:1 + len(kl)]), keys.dtype)
     svals = keymod.from_limbs(list(out[1 + len(kl):]), values.dtype)
     return _boundary_reduce(skeys, svals, num_groups=num_groups, agg=agg,
-                            n_valid=n_valid, vals_in_key_order=need_order,
-                            use_pallas=use_pallas)
+                            n_valid=n_valid, vals_in_key_order=need_order)
 
 
 def group_aggregate_sorted(keys, values, *, num_groups: int, agg: str = "sum",
-                           sorter=None, use_pallas: bool = True,
-                           keys_sorted: bool = False):
+                           sorter=None, keys_sorted: bool = False):
     """Aggregate values by arbitrary key: sort -> boundary scan -> reduce.
 
-    By default rows sort by (key, value) through the flagship Pallas
-    bitonic (use_pallas=False keeps the same algorithm on `jax.lax.sort`).
-    Passing an explicit registry `sorter` instead sorts by key only with
-    values as payload (the reference-style op-composition path); min/max
-    then re-sort (group_id, value) once. keys_sorted=True skips the input
-    sort entirely — the fusion path for producers that already emit
-    key-grouped rows (e.g. hash_join/hash_join_expand with sorted_output:
-    an aggregate after a join need not pay the join's restore sort NOR
-    its own input sort).
+    By default rows sort by key with values as payload through
+    `jax.lax.sort`. Passing an explicit registry `sorter` sorts through it
+    instead (the reference-style op-composition path). keys_sorted=True
+    skips the input sort entirely — the fusion path for producers that
+    already emit key-grouped rows (e.g. hash_join/hash_join_expand with
+    sorted_output: an aggregate after a join need not pay the join's
+    restore sort NOR its own input sort).
 
     Returns (group_keys, table, count): the first `count` entries of
     group_keys/table hold one row per distinct key in ascending key order;
@@ -239,18 +218,16 @@ def group_aggregate_sorted(keys, values, *, num_groups: int, agg: str = "sum",
                 jnp.zeros((num_groups,), table_dt), jnp.int32(0))
     if keys_sorted:
         return _boundary_reduce(keys, values, num_groups=num_groups,
-                                agg=agg, use_pallas=use_pallas)
+                                agg=agg)
     if sorter is None:
-        return _sorted_aggregate_pallas(keys, values, num_groups=num_groups,
-                                        agg=agg, use_pallas=use_pallas)
+        return _sorted_aggregate(keys, values, num_groups=num_groups,
+                                 agg=agg)
     skeys, svals = sorter.sort_with_device_data(keys, values)
-    return _boundary_reduce(skeys, svals, num_groups=num_groups, agg=agg,
-                            use_pallas=use_pallas)
+    return _boundary_reduce(skeys, svals, num_groups=num_groups, agg=agg)
 
 
 def group_aggregate_cols(keys, values, aggs, *, num_groups: int,
                          n_valid=None, valid_mask=None,
-                         use_pallas: bool = True,
                          keys_sorted: bool = False,
                          key_bits: int | None = None):
     """Multi-measure GROUP BY: one input sort, one boundary scan, one
@@ -260,11 +237,10 @@ def group_aggregate_cols(keys, values, aggs, *, num_groups: int,
 
     values: tuple of measure columns (same length); aggs: matching tuple
     from sum/count/min/max/mean ("count" ignores its column's values).
-    Rows sort by (key, values...) on normalized limbs through the
-    flagship Pallas bitonic (use_pallas=False: same algorithm on
-    lax.sort), so the FIRST column additionally rides the key order and
-    its min/max are free boundary gathers; later min/max columns reduce
-    through one segmented min/max scan each. n_valid aggregates only rows
+    Rows sort by key on normalized limbs with the measures as payload;
+    min/max columns reduce through one segmented min/max scan each (a
+    64-bit/f16 first column instead rides the key order, making its
+    min/max free boundary gathers). n_valid aggregates only rows
     < n_valid after partitioning validity to the front (the
     filter_compact composer). valid_mask aggregates only rows where the
     boolean mask holds — the FUSED filter form: validity becomes the
@@ -316,7 +292,7 @@ def group_aggregate_cols(keys, values, aggs, *, num_groups: int,
     if keys_sorted:
         return _boundary_reduce_cols(
             keys, tuple(values), num_groups=num_groups, aggs=tuple(aggs),
-            key_ordered=(False,) * len(values), use_pallas=use_pallas)
+            key_ordered=(False,) * len(values))
     # Dedup measure columns BY IDENTITY before the jit boundary (inside
     # the jit each tuple slot is a distinct tracer and identity would
     # never hold): several aggs over one measure (Q1's sum+min+count of
@@ -331,11 +307,9 @@ def group_aggregate_cols(keys, values, aggs, *, num_groups: int,
             uniq.append(v)
         slot_map.append(j)
     # Measure columns ride the sort as PAYLOAD (num_keys): min/max reduce
-    # through segmented scans (2 HBM sweeps each) — cheaper than paying
-    # the comparator chain on every column across the whole VPU-bound
-    # sort. Only a first-column min/max whose dtype the segmented kernel
-    # can't carry (64-bit/f16) pulls that column into the compare prefix
-    # for the key-ordered boundary-gather form.
+    # through segmented scans. Only a first-column min/max of a 64-bit/f16
+    # dtype (see _seg_ok) pulls that column into the compare prefix for
+    # the key-ordered boundary-gather form.
     first_in_prefix = any(
         a in ("min", "max") and j == 0 and not _seg_ok(uniq[0].dtype)
         for a, j in zip(aggs, slot_map))
@@ -344,18 +318,16 @@ def group_aggregate_cols(keys, values, aggs, *, num_groups: int,
         keys, tuple(uniq), n_valid, valid_mask, num_groups=num_groups,
         aggs=tuple(aggs), key_ordered=key_ordered,
         slot_map=tuple(slot_map), first_in_prefix=first_in_prefix,
-        key_bits=key_bits, use_pallas=use_pallas)
+        key_bits=key_bits)
 
 
 @functools.partial(jax.jit, static_argnames=("num_groups", "aggs",
                                              "key_ordered", "slot_map",
-                                             "first_in_prefix", "key_bits",
-                                             "use_pallas"))
+                                             "first_in_prefix", "key_bits"))
 def _group_aggregate_cols_sort(keys, values, n_valid, valid_mask, *,
                                num_groups: int, aggs, key_ordered,
                                slot_map=None, first_in_prefix: bool = False,
-                               key_bits: int | None = None,
-                               use_pallas: bool):
+                               key_bits: int | None = None):
     # values holds the UNIQUE measure columns; slot_map (static) maps each
     # agg slot to its unique column, so the fused sort moves each column
     # once no matter how many aggs read it.
@@ -388,16 +360,14 @@ def _group_aggregate_cols_sort(keys, values, n_valid, valid_mask, *,
                   | keys.astype(jnp.int32))
         cols = (packed, *(c for vl in vls for c in vl))
         nk = 1 + (len(vls[0]) if first_in_prefix else 0)
-        out = psort.sort_i32_cols(cols, num_keys=nk) if use_pallas else \
-            tuple(jax.lax.sort(list(cols), num_keys=nk))
+        out = psort.sort_i32_cols(cols, num_keys=nk)
         skeys = out[0].astype(keys.dtype)
         skip, kl = 1, ()  # measure columns start at out[1]
     else:
         cols = ((inv, *kl) if inv is not None else (*kl,)) \
             + tuple(c for vl in vls for c in vl)
         nk = skip + len(kl) + (len(vls[0]) if first_in_prefix else 0)
-        out = psort.sort_i32_cols(cols, num_keys=nk) if use_pallas else \
-            tuple(jax.lax.sort(list(cols), num_keys=nk))
+        out = psort.sort_i32_cols(cols, num_keys=nk)
         skeys = keymod.from_limbs(list(out[skip:skip + len(kl)]),
                                   keys.dtype)
     suniq = []
@@ -409,40 +379,36 @@ def _group_aggregate_cols_sort(keys, values, n_valid, valid_mask, *,
     svals = tuple(suniq[j] for j in slot_map)  # re-expand to agg slots
     return _boundary_reduce_cols(
         skeys, svals, num_groups=num_groups, aggs=aggs,
-        key_ordered=key_ordered, n_valid=n_valid, use_pallas=use_pallas)
+        key_ordered=key_ordered, n_valid=n_valid)
 
 
 def _boundary_reduce(skeys, svals, *, num_groups: int, agg: str,
-                     n_valid=None, vals_in_key_order: bool = False,
-                     use_pallas: bool = False):
+                     n_valid=None, vals_in_key_order: bool = False):
     """Scatter-free segmented reduce over key-sorted rows (one measure).
 
     Thin wrapper over _boundary_reduce_cols — see it for the mechanism
     and the n_valid contract."""
     gk, tables, count = _boundary_reduce_cols(
         skeys, (svals,), num_groups=num_groups, aggs=(agg,),
-        key_ordered=(vals_in_key_order,), n_valid=n_valid,
-        use_pallas=use_pallas)
+        key_ordered=(vals_in_key_order,), n_valid=n_valid)
     return gk, tables[0], count
 
 
 @functools.partial(jax.jit, static_argnames=("num_groups", "aggs",
-                                             "key_ordered", "use_pallas"))
+                                             "key_ordered"))
 def _boundary_reduce_cols(skeys, svals, *, num_groups: int, aggs,
-                          key_ordered, n_valid=None,
-                          use_pallas: bool = False):
+                          key_ordered, n_valid=None):
     """Scatter-free segmented reduce over key-sorted rows, N measures.
 
     The boundary machinery (group starts/ends, the data-dependent
-    end-position compaction — a stable partition through the Pallas
-    bitonic when use_pallas) runs ONCE and every measure column reduces
+    end-position compaction) runs ONCE and every measure column reduces
     against it. sum/count/mean: group totals are differences of the
-    running cumsum at segment END positions. min/max: when that column is
-    key_ordered (rows sorted by (key, value)), a group's min/max are the
-    values at its first/last position — pure gathers; otherwise one
-    (group_id, value) column sort per such column makes them
-    run-boundary gathers (the XLA scatter table both replace is
-    element-serialized on TPU, ~2 Mrows/s; r2 weak item 6).
+    running prefix sum at segment END positions. min/max: when that
+    column is key_ordered (rows sorted by (key, value)), a group's
+    min/max are the values at its first/last position — pure gathers;
+    otherwise a segmented scan (32-bit and f32 values) or one
+    (group_id, value) column sort per such column makes them run-boundary
+    gathers.
 
     n_valid: optional traced count of valid rows. When given, rows at
     positions >= n_valid are ignored entirely (callers sort with the
@@ -475,28 +441,22 @@ def _boundary_reduce_cols(skeys, svals, *, num_groups: int, aggs,
     # End position of group g = position of the (g+1)-th end flag. TWO
     # forms, picked by GROUP DENSITY:
     #   * sparse groups (num_groups << n): binary search over the
-    #     running end count — O(num_groups * log n) gathers. TPU random
-    #     gathers from HBM dominate, so the search is two-level: a
-    #     4096:1 decimated haystack (VMEM/cache-resident) then bounded
-    #     in-block steps. ~8 ms at 16M x 64K on v5e vs ~19 for the sort.
+    #     running end count — O(num_groups * log n) gathers, two-level
+    #     (a 4096:1 decimated haystack, then bounded in-block steps);
     #   * dense groups (num_groups ~ n, e.g. the rollup's per-key
     #     aggregate at n/8 distinct keys): the gather bill scales with
-    #     num_groups and LOSES to one n-row single-column stable
-    #     partition of the end positions (`(!is_end)*n + pos` through
-    #     the flagship bitonic — the form r4 briefly removed; restoring
-    #     it conditionally fixed a 3x rollup regression the r5 battery
-    #     caught: searchsorted ends at 2M groups measured ~0.25 s).
+    #     num_groups, so one n-row single-column sort of the end
+    #     positions (`(!is_end)*n + pos`) takes its place.
     gi = jax.lax.broadcasted_iota(jnp.int32, (num_groups,), 0)
     dense_groups = num_groups * 64 >= n and 2 * n < 2 ** 31
     if dense_groups:
         comb = psort.flag_pos_key(
             jnp.int32(1) - is_end.astype(jnp.int32), n)
-        spos_ends = (psort.sort_i32_cols((comb,))[0] if use_pallas
-                     else jax.lax.sort([comb], num_keys=1)[0])
+        spos_ends = psort.sort_i32_cols((comb,))[0]
         take_g = jnp.minimum(gi, n - 1)
         ends_all = jnp.take(spos_ends, take_g)  # = g-th end position
     else:
-        end_rank = _csum(is_end, use_pallas, jnp.int32)
+        end_rank = _csum(is_end, jnp.int32)
         ends_all = _searchsorted_2level(end_rank, gi + 1, n)
     valid_g = gi < count
     ends = jnp.where(valid_g, jnp.minimum(ends_all, n - 1), n - 1)
@@ -505,7 +465,7 @@ def _boundary_reduce_cols(skeys, svals, *, num_groups: int, aggs,
 
     vcnt_acc = None
     if any(a in ("count", "mean") for a in aggs):
-        vcnt_acc = _csum(valid, use_pallas, jnp.int32)
+        vcnt_acc = _csum(valid, jnp.int32)
 
     def seg_diff(acc):
         end_acc = jnp.take(acc, ends)
@@ -515,6 +475,7 @@ def _boundary_reduce_cols(skeys, svals, *, num_groups: int, aggs,
                          jnp.zeros((), end_acc.dtype))
 
     tables = []
+    group_id = None  # built once, on the first 64-bit/f16 min/max
     for sv, agg, ko in zip(svals, aggs, key_ordered):
         if agg in ("min", "max") and ko:
             src = ends if agg == "max" else jnp.clip(starts_g, 0, n - 1)
@@ -526,31 +487,23 @@ def _boundary_reduce_cols(skeys, svals, *, num_groups: int, aggs,
             # values in arbitrary within-group order: an INCLUSIVE
             # segmented min/max scan restarted at each group boundary
             # makes the value at a group's END position its group
-            # min/max — 2 HBM sweeps (ops/scan/segmented.py) instead of
-            # the (group_id, value) column sort this used to pay.
-            # Invalid rows sit past every group's end position, so their
-            # values never reach a gathered slot. 64-bit values keep the
-            # sort (the segmented kernel has no 64-bit registers and its
-            # XLA fallback is log-n passes — worse than one sort);
-            # half-precision floats keep it too (no f16 accumulator).
-            dt_ = jnp.dtype(sv.dtype)
-            seg_ok = (dt_.kind in "iu" and dt_.itemsize <= 4) or \
-                dt_ == jnp.float32
-            if seg_ok:
+            # min/max (ops/scan/segmented.py). Invalid rows sit past every
+            # group's end position, so their values never reach a gathered
+            # slot. 64-bit and half-precision values take one
+            # (group_id, value) column sort instead.
+            if _seg_ok(sv.dtype):
                 from cl_ops_tpu.ops.scan.segmented import segmented_scan_1d
                 seg = segmented_scan_1d(
-                    sv, is_new.astype(jnp.int32), op=agg, exclusive=False,
-                    use_pallas=use_pallas)
+                    sv, is_new.astype(jnp.int32), op=agg, exclusive=False)
                 tables.append(jnp.where(
                     valid_g, jnp.take(seg, ends).astype(sv.dtype),
                     jnp.asarray(_init_scalar(sv.dtype, agg), sv.dtype)))
                 continue
             vl = keymod.to_limbs(sv)
-            group_id = _csum(is_new, use_pallas, jnp.int32) - 1
+            if group_id is None:
+                group_id = _csum(is_new, jnp.int32) - 1
             gid2 = jnp.where(valid, group_id, jnp.int32(num_groups))
-            cols = (gid2, *vl)
-            out = psort.sort_i32_cols(cols) if use_pallas else tuple(
-                jax.lax.sort(list(cols), num_keys=len(cols)))
+            out = psort.sort_i32_cols((gid2, *vl))
             sv2 = keymod.from_limbs(list(out[1:]), sv.dtype)
             gi2 = jax.lax.broadcasted_iota(jnp.int32, (num_groups,), 0)
             s = jnp.searchsorted(out[0], gi2).astype(jnp.int32)
@@ -566,7 +519,7 @@ def _boundary_reduce_cols(skeys, svals, *, num_groups: int, aggs,
             continue
         if n_valid is not None:
             sv = jnp.where(valid, sv, jnp.zeros((), sv.dtype))
-        table = seg_diff(_csum(sv, use_pallas))
+        table = seg_diff(_csum(sv))
         if agg == "mean":
             cnts = jnp.maximum(seg_diff(vcnt_acc), 1)
             table = table / cnts.astype(table.dtype)

@@ -1,32 +1,21 @@
-"""Dense (small-cardinality) multi-measure GROUP BY: one streaming pass.
+"""Dense (small-cardinality) multi-measure GROUP BY: one scatter pass.
 
 When group ids are dense ints in [0, num_groups) and num_groups is small,
-sorting 16M rows to aggregate into 64 slots is three orders of magnitude
-more data movement than the problem needs. Real query engines special-case
-this shape (TPC-H Q1 has 4 groups) with a dense accumulator table; the
-TPU-native form keeps a per-(group, lane) accumulator tile resident in
-VMEM and streams the row blocks through it once:
+sorting the rows to aggregate them into a few slots moves far more data
+than the problem needs. Real query engines special-case this shape (TPC-H
+Q1 has 4 groups) with a dense accumulator table; here that table is
+`jax.ops.segment_sum` / `segment_min` / `segment_max`, which XLA runs as a
+scatter into the (num_groups,) table.
 
-    acc[g, l]  (+)=  value[b, l]   where  gid[b, l] == g
-
-so every lane owns an independent partial and the only cross-lane step is
-a final (num_groups, 128) -> (num_groups,) reduce outside the kernel.
-No sort, no scatter: the group routing is `gid == g` compares on the VPU —
-num_groups * n lane-ops total, which at num_groups <= ~1024 is far below
-the comparator cost of even one bitonic pass over the same rows.
-
-Exactness: integer sums accumulate in wrapping i32 (two's-complement adds
-are associative), so any accumulation order is bit-identical to the sorted
-path's cumsum-difference mod 2^32; min/max/count are order-free. f32
-columns support min/max only (through the monotone ordered-u32 map, done
-as plain compares on the raw float here since per-lane compares need no
-total order tricks) — f32 SUMS would be order-dependent and are rejected.
+Exactness: integer sums accumulate in wrapping i32 (u32 natively), so any
+accumulation order is bit-identical to the sorted path's prefix-sum
+differences mod 2^32; min/max/count are order-free. f32 columns support
+min/max only — f32 SUMS would depend on the scatter's order and are
+rejected.
 
 The sorted path (`group_aggregate_cols`) remains the general form for
-arbitrary keys / large num_groups; `group_aggregate_direct` remains the
-XLA scatter-add reference. Composition referent: the reference's satradix
-composing a CloScan (`src/cl_ops/sort/clo_sort_satradix.c:296-300`) — this
-operator likewise reuses the framework's blocking/padding conventions.
+arbitrary keys / large num_groups; `group_aggregate_direct` is the
+single-measure scatter form.
 """
 
 from __future__ import annotations
@@ -35,151 +24,20 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 __all__ = ["group_aggregate_dense_cols", "DENSE_MAX_GROUPS"]
 
-_LANES = 128
-# Auto-routing ceiling: accumulator tiles stay comfortably inside VMEM and
-# the num_groups*n VPU routing work stays below one sort's comparator bill.
+# The cardinality this operator is meant for; past it the sorted
+# group_aggregate_cols is the general form.
 DENSE_MAX_GROUPS = 1024
 
-_I32_MAX = 2 ** 31 - 1
-_I32_MIN = -(2 ** 31)
-
-
-def _ident(kind: str) -> int:
-    return {"sum": 0, "count": 0, "min": _I32_MAX, "max": _I32_MIN}[kind]
-
-
-def _dense_kernel(gid_ref, *refs, n_cols: int, reductions, num_groups: int,
-                  g_pad: int):
-    """Accumulate per-(group, lane) partials over one row block.
-
-    reductions: static tuple of (col_slot, kind, flip) — flip is the
-    sign-bit XOR that makes signed i32 compares match the column's true
-    order (u32 columns) for min/max; sums use raw wrapping bits.
-    The out blocks revisit the same (g_pad, LANES) tile every grid step
-    (constant index map), so they act as VMEM-resident accumulators.
-    """
-    vrefs = refs[:n_cols]
-    orefs = refs[n_cols:]
-
-    @pl.when(pl.program_id(0) == 0)
-    def _init():
-        for oref, (_, kind, _f) in zip(orefs, reductions):
-            oref[...] = jnp.full((g_pad, _LANES), _ident(kind), jnp.int32)
-
-    gid = gid_ref[...]
-    cols = {}
-    for slot, kind, flip in reductions:
-        if slot is not None and (slot, flip) not in cols:
-            v = vrefs[slot][...]
-            cols[(slot, flip)] = v ^ jnp.int32(-0x80000000) if flip else v
-
-    if num_groups <= _LANES:
-        # unrolled: one masked sublane-reduce per group, stacked into a
-        # single vectorized accumulator update per reduction
-        for oref, (slot, kind, flip) in zip(orefs, reductions):
-            rows = []
-            for g in range(num_groups):
-                m = gid == g
-                if kind == "count":
-                    rows.append(jnp.sum(m.astype(jnp.int32), axis=0,
-                                        keepdims=True))
-                elif kind == "sum":
-                    rows.append(jnp.sum(
-                        jnp.where(m, cols[(slot, flip)], 0), axis=0,
-                        keepdims=True))
-                elif kind == "min":
-                    rows.append(jnp.min(
-                        jnp.where(m, cols[(slot, flip)], _I32_MAX),
-                        axis=0, keepdims=True))
-                else:
-                    rows.append(jnp.max(
-                        jnp.where(m, cols[(slot, flip)], _I32_MIN),
-                        axis=0, keepdims=True))
-            for _ in range(g_pad - num_groups):  # identity pad rows
-                rows.append(jnp.full((1, _LANES), _ident(kind), jnp.int32))
-            part = jnp.concatenate(rows, axis=0)
-            if kind in ("sum", "count"):
-                oref[...] = oref[...] + part
-            elif kind == "min":
-                oref[...] = jnp.minimum(oref[...], part)
-            else:
-                oref[...] = jnp.maximum(oref[...], part)
-    else:
-        # large-G form: traced loop, one dynamic accumulator row per group
-        def body(g, _):
-            m = gid == g
-            for oref, (slot, kind, flip) in zip(orefs, reductions):
-                if kind == "count":
-                    part = jnp.sum(m.astype(jnp.int32), axis=0,
-                                   keepdims=True)
-                    oref[pl.ds(g, 1), :] = oref[pl.ds(g, 1), :] + part
-                elif kind == "sum":
-                    part = jnp.sum(jnp.where(m, cols[(slot, flip)], 0),
-                                   axis=0, keepdims=True)
-                    oref[pl.ds(g, 1), :] = oref[pl.ds(g, 1), :] + part
-                elif kind == "min":
-                    part = jnp.min(jnp.where(m, cols[(slot, flip)],
-                                             _I32_MAX), axis=0,
-                                   keepdims=True)
-                    oref[pl.ds(g, 1), :] = jnp.minimum(
-                        oref[pl.ds(g, 1), :], part)
-                else:
-                    part = jnp.max(jnp.where(m, cols[(slot, flip)],
-                                             _I32_MIN), axis=0,
-                                   keepdims=True)
-                    oref[pl.ds(g, 1), :] = jnp.maximum(
-                        oref[pl.ds(g, 1), :], part)
-            return 0
-        jax.lax.fori_loop(0, num_groups, body, 0)
-
-
-def _to_raw_i32(v):
-    """Bitcast any 4-byte integer column to i32; widen narrower ints."""
-    dt = jnp.dtype(v.dtype)
-    if dt == jnp.int32:
-        return v, False
-    if dt == jnp.uint32:
-        # raw bits: wrapping sums match; min/max need the sign flip
-        return jax.lax.bitcast_convert_type(v, jnp.int32), True
-    if dt.kind == "i":
-        return v.astype(jnp.int32), False
-    if dt.kind == "u":
-        return v.astype(jnp.int32), False  # zero-extended: order intact
-    if dt == jnp.float32:
-        # monotone map float -> i32 (keys.py trick); min/max only
-        u = jax.lax.bitcast_convert_type(v, jnp.uint32)
-        neg = (u >> jnp.uint32(31)).astype(jnp.bool_)
-        ordered = jnp.where(neg, ~u, u | jnp.uint32(0x80000000))
-        return jax.lax.bitcast_convert_type(
-            ordered ^ jnp.uint32(0x80000000), jnp.int32), False
-    raise ValueError(f"dense aggregate: unsupported column dtype {dt}")
-
-
-def _decode(table_i32, dtype, kind):
-    dt = jnp.dtype(dtype)
-    if kind == "count":
-        return table_i32
-    if dt == jnp.float32:
-        u = jax.lax.bitcast_convert_type(table_i32, jnp.uint32) ^ jnp.uint32(
-            0x80000000)
-        neg = jnp.logical_not((u >> jnp.uint32(31)).astype(jnp.bool_))
-        raw = jnp.where(neg, ~u, u & jnp.uint32(0x7FFFFFFF))
-        return jax.lax.bitcast_convert_type(raw, jnp.float32)
-    if dt == jnp.uint32:
-        return jax.lax.bitcast_convert_type(table_i32, jnp.uint32)
-    return table_i32.astype(dt)  # narrow ints: truncation == wrapping sum
+_SEGMENT = {"sum": jax.ops.segment_sum, "min": jax.ops.segment_min,
+            "max": jax.ops.segment_max}
 
 
 def group_aggregate_dense_cols(group_ids, values, aggs, *, num_groups: int,
-                               valid_mask=None, block_rows: int = 512,
-                               interpret: bool = False,
-                               use_pallas: bool = True):
-    """Multi-measure GROUP BY over DENSE group ids — sort-free streaming.
+                               valid_mask=None):
+    """Multi-measure GROUP BY over DENSE group ids — sort-free.
 
     Args:
       group_ids: 1-D int column of ids; rows with ids outside
@@ -188,12 +46,8 @@ def group_aggregate_dense_cols(group_ids, values, aggs, *, num_groups: int,
         narrower; f32 for min/max only).
       aggs: matching tuple from sum/count/min/max/mean (list accepted,
         as in group_aggregate_cols).
-      num_groups: dense id capacity; keep it <= ~DENSE_MAX_GROUPS — the
-        routing work is num_groups * n lane-ops (the sorted
-        `group_aggregate_cols` wins past that).
+      num_groups: dense id capacity (see DENSE_MAX_GROUPS).
       valid_mask: optional boolean mask — the fused WHERE form.
-      use_pallas: False runs the same accumulation as one XLA
-        scatter-free pass per group (oracle/portability form).
 
     Returns (group_keys, tables, count) in group_aggregate_cols layout:
     the first `count` rows hold one row per PRESENT group (>= 1 valid
@@ -203,58 +57,7 @@ def group_aggregate_dense_cols(group_ids, values, aggs, *, num_groups: int,
     aggs = tuple(aggs)
     if len(values) != len(aggs) or not values:
         raise ValueError("values and aggs must be equal-length, non-empty")
-    # dedup measure columns by identity HERE, before the jit boundary
-    # (inside the jit each tuple slot is a distinct tracer): the same
-    # array in several slots streams through the kernel once.
-    uniq, slot_map, seen = [], [], {}
-    for v in values:
-        j = seen.get(id(v))
-        if j is None:
-            j = len(uniq)
-            seen[id(v)] = j
-            uniq.append(v)
-        slot_map.append(j)
-    return _dense_cols_impl(
-        group_ids, tuple(uniq), valid_mask, aggs=aggs,
-        slot_map=tuple(slot_map), num_groups=num_groups,
-        block_rows=block_rows, interpret=interpret, use_pallas=use_pallas)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("aggs", "slot_map", "num_groups",
-                              "block_rows", "interpret", "use_pallas"))
-def _dense_cols_impl(group_ids, uvalues, valid_mask, *, aggs, slot_map,
-                     num_groups: int, block_rows: int, interpret: bool,
-                     use_pallas: bool):
-    values = tuple(uvalues[j] for j in slot_map)  # per-agg-slot view
-    n = group_ids.shape[0]
-    gid = group_ids.astype(jnp.int32)
-    if valid_mask is not None:
-        gid = jnp.where(valid_mask, gid, jnp.int32(num_groups))
-    # out-of-range ids (incl. masked rows) -> num_groups: never matched
-    gid = jnp.where((gid >= 0) & (gid < num_groups), gid,
-                    jnp.int32(num_groups))
-
-    # Build the unique kernel reduction set. count runs once (presence +
-    # count/mean); mean decomposes into sum + count.
-    encoded = []      # unique raw i32 columns fed to the kernel
-    enc_slot = {}     # unique-column index (slot_map[i]) -> kernel slot
-    flips = []
-    reductions = [(None, "count", False)]
-    red_of = {}       # (slot|None, kind) -> reduction index
-
-    def col_slot(i):
-        key = slot_map[i]
-        if key not in enc_slot:
-            raw, flip = _to_raw_i32(values[i])
-            enc_slot[key] = len(encoded)
-            encoded.append(raw)
-            flips.append(flip)
-        return enc_slot[key]
-
-    red_of[(None, "count")] = 0
-    plan = []  # per output: (reduction idx or (sum_idx, cnt_idx) for mean)
-    for i, (v, a) in enumerate(zip(values, aggs)):
+    for v, a in zip(values, aggs):
         dt = jnp.dtype(v.dtype)
         if a not in ("sum", "count", "min", "max", "mean"):
             raise ValueError(f"unknown agg {a!r}")
@@ -264,84 +67,29 @@ def _dense_cols_impl(group_ids, uvalues, valid_mask, *, aggs, slot_map,
         if dt.itemsize == 8:
             raise ValueError("dense aggregate: 64-bit columns need the "
                              "sorted path")
-        if a == "count":
-            plan.append(0)
-            continue
-        kind = "sum" if a == "mean" else a
-        s = col_slot(i)
-        flip = flips[s] and kind in ("min", "max")
-        rk = (s, kind, flip)
-        if (s, kind) not in red_of:
-            red_of[(s, kind)] = len(reductions)
-            reductions.append(rk)
-        plan.append(red_of[(s, kind)])
+        if dt.kind not in "iuf":
+            raise ValueError(f"dense aggregate: unsupported column dtype "
+                             f"{dt}")
+    return _dense_cols(group_ids, values, valid_mask, aggs=aggs,
+                       num_groups=num_groups)
 
-    g_pad = max(8, -(-num_groups // 8) * 8)
-    if use_pallas:
-        per_block = block_rows * _LANES
-        n_pad = -(-max(n, 1) // per_block) * per_block
-        gid2 = jnp.pad(gid, (0, n_pad - n),
-                       constant_values=num_groups).reshape(-1, _LANES)
-        enc2 = [jnp.pad(c, (0, n_pad - n)).reshape(-1, _LANES)
-                for c in encoded]
-        n_blocks = n_pad // per_block
-        spec = pl.BlockSpec((block_rows, _LANES), lambda i: (i, i * 0),
-                            memory_space=pltpu.VMEM)
-        acc_spec = pl.BlockSpec((g_pad, _LANES), lambda i: (i * 0, i * 0),
-                                memory_space=pltpu.VMEM)
-        from cl_ops_tpu.utils.platform import pallas_interpret
-        outs = pl.pallas_call(
-            functools.partial(
-                _dense_kernel, n_cols=len(encoded),
-                reductions=tuple(reductions), num_groups=num_groups,
-                g_pad=g_pad),
-            grid=(n_blocks,),
-            in_specs=[spec] * (1 + len(encoded)),
-            out_specs=[acc_spec] * len(reductions),
-            out_shape=[jax.ShapeDtypeStruct((g_pad, _LANES), jnp.int32)
-                       for _ in reductions],
-            interpret=interpret or pallas_interpret(),
-        )(gid2, *enc2)
-    else:
-        # XLA oracle: the same per-group masked reduces on one
-        # (num_groups, n) broadcast — fine at test scale, not a kernel
-        outs = []
-        gid_row = gid[None, :]
-        gslot = jax.lax.broadcasted_iota(jnp.int32, (num_groups, 1), 0)
-        onehot = gid_row == gslot  # (G, n)
-        for slot, kind, flip in reductions:
-            if kind == "count":
-                r = jnp.sum(onehot.astype(jnp.int32), axis=1)
-            else:
-                c = encoded[slot]
-                c = c ^ jnp.int32(-0x80000000) if flip else c
-                if kind == "sum":
-                    r = jnp.sum(jnp.where(onehot, c[None, :], 0), axis=1,
-                                dtype=jnp.int32)
-                elif kind == "min":
-                    r = jnp.min(jnp.where(onehot, c[None, :], _I32_MAX),
-                                axis=1)
-                else:
-                    r = jnp.max(jnp.where(onehot, c[None, :], _I32_MIN),
-                                axis=1)
-            # (g_pad, 1) layout so the lane combiner below is shared
-            outs.append(jnp.pad(r, (0, g_pad - num_groups),
-                                constant_values=_ident(kind))[:, None])
 
-    # combine lanes -> (num_groups,) per reduction
-    combined = []
-    for o, (_, kind, flip) in zip(outs, reductions):
-        if kind in ("sum", "count"):
-            r = jnp.sum(o, axis=1, dtype=jnp.int32)
-        elif kind == "min":
-            r = jnp.min(o, axis=1)
-        else:
-            r = jnp.max(o, axis=1)
-        if flip:
-            r = r ^ jnp.int32(-0x80000000)
-        combined.append(r[:num_groups])
+@functools.partial(jax.jit, static_argnames=("aggs", "num_groups"))
+def _dense_cols(group_ids, values, valid_mask, *, aggs, num_groups: int):
+    gid = group_ids.astype(jnp.int32)
+    keep = (gid >= 0) & (gid < num_groups)
+    if valid_mask is not None:
+        keep = keep & valid_mask
+    # dropped rows go to one extra segment, sliced off below
+    gid = jnp.where(keep, gid, jnp.int32(num_groups))
 
-    counts = combined[0]
+    def reduce(kind, v):
+        if kind == "sum" and jnp.dtype(v.dtype) != jnp.uint32:
+            v = v.astype(jnp.int32)  # wrapping sums; narrow on the way out
+        return _SEGMENT[kind](v, gid, num_segments=num_groups + 1,
+                              indices_are_sorted=False)[:num_groups]
+
+    counts = reduce("sum", jnp.ones_like(gid))
     present = counts > 0
     count = jnp.sum(present.astype(jnp.int32))
     gi1 = jax.lax.broadcasted_iota(jnp.int32, (num_groups,), 0)
@@ -350,14 +98,14 @@ def _dense_cols_impl(group_ids, uvalues, valid_mask, *, aggs, slot_map,
     group_keys = jnp.take(gi1, order).astype(group_ids.dtype)
 
     tables = []
-    for i, (v, a) in enumerate(zip(values, aggs)):
+    for v, a in zip(values, aggs):
         if a == "count":
             t = counts
         elif a == "mean":
-            s = combined[plan[i]].astype(v.dtype)
+            s = reduce("sum", v).astype(v.dtype)
             # same divide expression as _boundary_reduce_cols
             t = s / jnp.maximum(counts, 1).astype(s.dtype)
         else:
-            t = _decode(combined[plan[i]], v.dtype, a)
+            t = reduce(a, v).astype(v.dtype)
         tables.append(jnp.take(t, order))
     return group_keys, tuple(tables), count

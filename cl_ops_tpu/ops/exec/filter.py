@@ -6,12 +6,11 @@ reference library; it is the canonical *consumer* of the reference's
 primitives — the same composition pattern satradix uses
 (`src/cl_ops/sort/clo_sort_satradix.c:296-300` composes a CloScan).
 
-TPU-native formulation: compaction destinations are an exclusive prefix sum
-of the predicate mask, but XLA's scatter is element-serialized on TPU
-(~1000x slower than a sort here), so compaction instead rides ONE unique
-i32 key `(!keep)*n + position` through the flagship Pallas bitonic — a
-stable partition with kept rows contiguous at the front (psort.py). The
-count is a plain reduction.
+Formulation: compaction is a stable partition — kept rows move to the
+front in their original order — done by one stable `jax.lax.sort` keyed on
+the dropped flag, the columns riding as they are. The count is a plain
+reduction. (A packed unique `(!keep)*n + position` rank key ran as fast
+with a payload column and 14% slower without one on the H100; PERF.md.)
 
 XLA has no data-dependent shapes, so compaction returns (count, packed):
 `packed` has the input length with kept rows contiguous at the front and
@@ -26,24 +25,10 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 
-from cl_ops_tpu.ops.exec import psort
 
-# flag*n + pos stays exact while 2n < _PACK_MAX; beyond it the rank uses
-# two columns. Module-level so tests can shrink it to cover the wide path.
-_PACK_MAX = 2 ** 31
-
-
-@functools.partial(jax.jit, static_argnames=("predicate", "use_pallas"))
-def filter_compact(data, predicate: Callable, *extra_cols,
-                   use_pallas: bool = True):
+@functools.partial(jax.jit, static_argnames=("predicate",))
+def filter_compact(data, predicate: Callable, *extra_cols):
     """Keep rows where predicate(data) holds, compacted to the front.
-
-    use_pallas selects the Pallas bitonic compaction (default) for any
-    column widths and any n < 2^31: the stable-partition rank is the
-    packed `(!keep)*n + pos` key when it fits i32 (2n < 2^31) and the
-    two-column `(!keep, pos)` rank beyond (one extra column of traffic —
-    the "two-limb rank" form); wide/narrow payload columns ride as i32
-    limb encodings (psort.cols_to_i32).
 
     Args:
       data: 1-D array the predicate reads.
@@ -51,27 +36,11 @@ def filter_compact(data, predicate: Callable, *extra_cols,
       *extra_cols: additional same-length columns carried through.
 
     Returns:
-      (count, packed_data, *packed_cols) — elements past `count` are
-      unspecified (the dropped rows' slots).
+      (count, packed_data, *packed_cols) — kept rows in input order;
+      elements past `count` are unspecified (the dropped rows' slots).
     """
-    n = data.shape[0]
     mask = predicate(data)
-    keep_i32 = mask.astype(jnp.int32)
-    count = jnp.sum(keep_i32)
-    cols = (data, *extra_cols)
-    if use_pallas and n < 2 ** 31 and psort.cols_encodable(*cols):
-        enc, spec = psort.cols_to_i32(cols)
-        if 2 * n < _PACK_MAX:
-            keys = (psort.flag_pos_key(jnp.int32(1) - keep_i32, n),)
-        else:  # two-limb rank: (flag, position) lexicographic
-            keys = (jnp.int32(1) - keep_i32,
-                    jax.lax.broadcasted_iota(jnp.int32, (n,), 0))
-        # the rank prefix is unique and < 2n, so payload columns skip the
-        # comparator entirely (num_keys) and pads still sort last on the
-        # prefix alone (pad_safe)
-        out = psort.sort_i32_cols((*keys, *enc), num_keys=len(keys),
-                                  pad_safe=True)
-        return (count, *psort.cols_from_i32(out[len(keys):], spec))
+    count = jnp.sum(mask.astype(jnp.int32))
     dropped_key = jnp.logical_not(mask).astype(jnp.int32)
     out = jax.lax.sort([dropped_key, data, *extra_cols], num_keys=1,
                        is_stable=True)

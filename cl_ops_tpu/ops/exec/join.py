@@ -2,10 +2,10 @@
 
 North-star operator (BASELINE.json: "Distributed hash join: 1B-row fact x
 100M-row dim"). No referent in the reference library. Single-chip strategy
-is sort + merge-join probe (TPU has no efficient random VMEM scatter, so
-classic linear-probing tables lose to sorted probes); the distributed
-strategy hash-partitions both sides over the mesh with all_to_all so each
-chip joins only its partition (parallel/ layer).
+is a sorted build side probed by binary search (probe.py) or, as the
+alternative, a sort-merge rank of build ++ probe; the distributed strategy
+hash-partitions both sides over the mesh with all_to_all so each chip
+joins only its partition (parallel/ layer).
 
 Semantics:
   * unique build keys (dimension-table case): (found, vals) per probe.
@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from cl_ops_tpu.ops.exec import psort
+from cl_ops_tpu.ops.exec.probe import search_build
 from cl_ops_tpu.ops.sort import keys as keymod
 
 _I32_MIN = -0x80000000
@@ -31,147 +32,24 @@ _I32_MAX = 0x7FFFFFFF
 # packed pos*2+eq restore keys stay exact while 2m < _PACK_MAX; beyond it
 # restores use an extra column. Module-level so tests can shrink it.
 _PACK_MAX = 2 ** 31
-
-
-@functools.partial(jax.jit, static_argnames=("num_keys", "pad_safe"))
-def _jit_sort_cols(cols, num_keys=None, pad_safe=False):
-    """Jitted wrapper around psort.sort_i32_cols — its own XLA module.
-
-    The probe pipeline is staged into three separately-jitted pieces
-    (probe sort / merge+rank / restore): one module holding the whole
-    ~90-pallas_call pipeline OOM-kills the remote Mosaic compile helper
-    (~60 calls per module is fine — the aggregate's module size).
-    num_keys/pad_safe as in sort_i32_cols: every restore sort here keys
-    on a unique position/rank prefix, so value columns ride as payload.
-    """
-    return psort.sort_i32_cols(cols, num_keys=num_keys, pad_safe=pad_safe)
-
-
-@jax.jit
-def _merge_stage(build_limbs, build_vcols, sp_limbs, sp_merged):
-    """Merge + rank + gathers: everything between the two probe sorts.
-
-    Inputs: sorted probe limb columns + their merged ids (m + src).
-    Returns per SORTED probe: (key3 = src*2 + eq, counts, val_prev,
-    val_next) ready for the restore sort; val_prev/val_next are tuples
-    of gathered value columns (1 for 4-byte values, 2 limbs for 8-byte).
-    """
-    from cl_ops_tpu.ops.sort import bitonic as _bt
-    from cl_ops_tpu.ops.sort import bitonic_kernels as bk
-    from cl_ops_tpu.utils.bits import nlpo2
-    from cl_ops_tpu.utils.platform import pallas_interpret
-    nl = len(build_limbs)
-    nb = build_limbs[0].shape[0]
-    m = sp_merged.shape[0]
-    nt = nb + m
-    p2 = max(nlpo2(nt), bk.MIN_ROWS * bk.LANES)
-    pad = p2 - nt
-    # build asc ++ probes desc ++ global-min pads = one bitonic sequence
-    cols = [jnp.concatenate([
-        b, jnp.flip(s), jnp.full((pad,), jnp.int32(_I32_MIN), jnp.int32)
-    ]) for b, s in zip(build_limbs, sp_limbs)]
-    # merged column: dims 0, pads -1 (pads tie-break BEFORE any real row
-    # at the limb minimum, so all pads land at the front)
-    mcol = jnp.concatenate([
-        jnp.zeros((nb,), jnp.int32), jnp.flip(sp_merged),
-        jnp.full((pad,), jnp.int32(-1), jnp.int32)])
-    rows = p2 // bk.LANES
-    br = min(_bt._pick_block_rows(nl + 1, 16 * 1024 * 1024), 512, rows)
-    out = bk.bitonic_merge_2d(
-        tuple(c.reshape(rows, bk.LANES) for c in (*cols, mcol)),
-        block_rows=br, interpret=pallas_interpret())
-    s_limbs = tuple(o.reshape(-1) for o in out[:nl])
-    smerged_f = out[nl].reshape(-1)
-    flag = smerged_f >= m
-    rank_excl = jnp.cumsum(flag.astype(jnp.int32)) - flag.astype(jnp.int32)
-    pos_f = jax.lax.broadcasted_iota(jnp.int32, (p2,), 0)
-    counts_all = pos_f - rank_excl - jnp.int32(pad)
-    # compact probe slots to the front (ONE single-column sort)
-    comb = psort.flag_pos_key(jnp.int32(1) - flag.astype(jnp.int32), p2)
-    probe_pos = psort.sort_i32_cols((comb,))[0][:m]
-    counts = jnp.take(counts_all, probe_pos)  # monotone gathers below
-    probe_src = jnp.take(smerged_f, probe_pos) - jnp.int32(m)
-    idx = jnp.clip(counts - 1, 0, nb - 1)
-    nxt = jnp.clip(counts, 0, nb - 1)
-    val_prev = tuple(jnp.take(v, idx) for v in build_vcols)
-    val_next = tuple(jnp.take(v, nxt) for v in build_vcols)
-    eq = counts > 0
-    for bl, sl in zip(build_limbs, s_limbs):
-        eq = eq & (jnp.take(bl, idx) == jnp.take(sl, probe_pos))
-    key3 = probe_src * 2 + eq.astype(jnp.int32)
-    return key3, counts, val_prev, val_next
-
-
-def _merge_rank(build_limbs, build_vcols, probe_limbs,
-                use_pallas: bool = True, sorted_output: bool = False):
-    """Counts-and-gathers core of the merge-join probe.
-
-    Keys are tuples of normalized i32 limbs (keys.py — 1 for 32-bit, 2 for
-    64-bit). With dims sorted BEFORE probes on equal keys, a probe's
-    merged position minus its rank among probes = count of build keys <=
-    the probe key. Everything is sorts, a prefix rank, and monotone
-    gathers — no per-probe binary search (jnp.searchsorted costs
-    ~log2(nb) rounds of random gathers on TPU, ~10x slower at 16M x 1M).
-
-    Returns, in ORIGINAL probe order (or SORTED probe order when
-    sorted_output, skipping the restore sort):
-      counts_leq — #build keys <= probe key
-      eq         — build key at counts_leq-1 == probe (match on the
-                   upper-bound side)
-      val_prev   — build value columns at counts_leq-1 (tuple; the
-                   unique-key match value)
-      val_next   — build value columns at counts_leq (tuple; first-match
-                   value when the counts counted strictly-less keys)
-      spos       — sorted_output only: original probe row per output row
-                   (None otherwise)
-    """
-    nl = len(build_limbs)
-    nb = build_limbs[0].shape[0]
-    m = probe_limbs[0].shape[0]
-    nt = nb + m
-    if use_pallas:
-        from cl_ops_tpu.ops.sort import bitonic_kernels as bk
-        from cl_ops_tpu.utils.bits import nlpo2
-        p2 = max(nlpo2(nt), bk.MIN_ROWS * bk.LANES)
-        if 2 * p2 >= _PACK_MAX:
-            # _merge_stage's flag-pos compaction key would wrap i32 at
-            # this padded size; the XLA form stays exact
-            use_pallas = False
-    if use_pallas:
-        # Merge-structured probe (r2): instead of fully sorting the padded
-        # build++probe concatenation (pow-2 padding nearly doubles 17M ->
-        # 32M AND a full sort is ~13x the comparator work of a merge), sort
-        # ONLY the probes, bitonic-MERGE the two sorted runs (_merge_stage)
-        # and restore with one more sort. Three separately-jitted stages —
-        # see _jit_sort_cols on why.
-        merged_p = jnp.int32(m) + jax.lax.broadcasted_iota(
-            jnp.int32, (m,), 0)
-        sp = _jit_sort_cols((*probe_limbs, merged_p))
-        key3, counts, val_prev, val_next = _merge_stage(
-            tuple(build_limbs), tuple(build_vcols), tuple(sp[:nl]), sp[nl])
-        if sorted_output:  # key3 = spos*2 + eq — no restore sort needed
-            return (counts, (key3 & 1) > 0, val_prev, val_next,
-                    jax.lax.shift_right_logical(key3, jnp.int32(1)))
-        nv = len(val_prev)
-        out = _jit_sort_cols((key3, counts, *val_prev, *val_next),
-                             num_keys=1, pad_safe=True)
-        skey3, rc = out[0], out[1]
-        return (rc, (skey3 & 1) > 0, tuple(out[2:2 + nv]),
-                tuple(out[2 + nv:]), None)
-    return _merge_rank_xla(tuple(build_limbs), tuple(build_vcols),
-                           tuple(probe_limbs), sorted_output=sorted_output)
+PROBE_IMPLS = ("auto", "direct", "merge")
 
 
 @functools.partial(jax.jit, static_argnames=("sorted_output",))
-def _merge_rank_xla(build_limbs, build_vcols, probe_limbs,
+def _merge_rank(build_limbs, build_vcols, probe_limbs,
                     sorted_output: bool = False):
-    """lax.sort fallback: one merged sort of the concatenation with dims
-    tagged before equal probes, probe rows compacted to the front.
+    """Counts-and-gathers core of the merge-join probe.
 
-    Returns (counts, eq, val_prev, val_next, spos): original probe order
-    with spos=None, or — with sorted_output — probe-key-sorted order
-    (skipping the restore sort) with spos = original probe row per output
-    row, matching the Pallas merge path's sorted_output contract."""
+    Keys are tuples of normalized i32 limbs (keys.py — 1 for 32-bit, 2 for
+    64-bit). One sort of the build ++ probe concatenation, with build rows
+    tagged to sort before equal probes: a probe's merged position minus
+    its rank among probes = count of build keys <= the probe key.
+    Everything is sorts, a prefix rank and monotone gathers.
+
+    Returns (counts, eq, val_prev, val_next, spos) — as search_build's
+    fields (probe.py) — in original probe order with spos=None, or, with
+    sorted_output, in probe-key-sorted order (skipping the restore sort)
+    with spos = original probe row per output row."""
     nl = len(build_limbs)
     nb = build_limbs[0].shape[0]
     m = probe_limbs[0].shape[0]
@@ -235,351 +113,137 @@ def _limbs_minus_one(limbs):
             jnp.where(is_min, lo, new_lo)), is_min
 
 
-@jax.jit
-def _jit_limbs(a):
-    return tuple(keymod.to_limbs(a))
-
-
-@jax.jit
-def _jit_i32(a):
-    return psort.as_i32(a)
-
-
-@jax.jit
-def _jit_val_cols(build_vals):
-    """Value column(s) as i32: one column for 4-byte dtypes, two limb
-    columns for 8-byte ones — the band/sort kernels move i32 lanes only,
-    so wide values ride as an extra inert column instead of demoting the
-    whole join off the Pallas path (which silently truncated them to the
-    low limb before r3)."""
-    dt = jnp.dtype(build_vals.dtype)
-    if dt.itemsize == 4:
-        return (psort.as_i32(build_vals),)
-    pair = jax.lax.bitcast_convert_type(build_vals, jnp.int32)
-    return (pair[:, 0], pair[:, 1])
+def _val_cols(build_vals):
+    """Value column(s) as i32 (two limb columns for 8-byte dtypes), so
+    every strategy moves i32 columns only."""
+    return psort.cols_to_i32((build_vals,))[0]
 
 
 def _val_from_cols(cols, dtype):
-    """Inverse of _jit_val_cols for gathered value columns."""
-    dt = jnp.dtype(dtype)
-    if dt.itemsize == 4:
-        return psort.from_i32(cols[0], dt)
-    return jax.lax.bitcast_convert_type(jnp.stack(tuple(cols), axis=-1), dt)
+    """Inverse of _val_cols for gathered value columns."""
+    return psort.cols_from_i32(tuple(cols), (jnp.dtype(dtype),))[0]
 
 
-def _probe_strategy(nb: int, use_pallas: bool, probe_impl: str,
-                    sorted_output: bool = False) -> str:
-    """Resolve "auto" to the concrete probe strategy for this build size."""
-    from cl_ops_tpu.ops.exec import bandprobe
-    if probe_impl not in ("auto", "direct", "banded", "merge"):
-        raise ValueError(f"unknown probe_impl {probe_impl!r}")
-    if probe_impl in ("direct", "banded") and not use_pallas:
-        # use_pallas=False also covers auto-demotion for non-4-byte build
-        # values: the band kernels would run on (n, 2)-shaped i32 bitcasts
-        # and fail with confusing shape errors
-        raise ValueError(
-            f"probe_impl={probe_impl!r} requires the Pallas path "
-            "(use_pallas=True and 4- or 8-byte int/float build values)")
-    if probe_impl == "direct" and sorted_output:
-        # direct keeps original probe order; sorted_output promises
-        # key-grouped rows — there is no cheap way to honor both
-        raise ValueError("probe_impl='direct' keeps original probe order "
-                         "and cannot honor sorted_output=True; use "
-                         "'banded', 'merge', or auto")
-    if probe_impl == "direct" and nb > bandprobe.DIRECT_MAX:
-        raise ValueError("build side too large for probe_impl='direct'")
-    if probe_impl != "auto":
-        return probe_impl
-    if not use_pallas:
-        return "merge"
-    if sorted_output:  # direct would keep original (ungrouped) order
-        return "banded"
-    return "direct" if nb <= bandprobe.DIRECT_MAX else "banded"
+def _probe_strategy(probe_impl: str) -> str:
+    """Resolve "auto" to the concrete probe strategy."""
+    if probe_impl not in PROBE_IMPLS:
+        raise ValueError(f"unknown probe_impl {probe_impl!r}; known: "
+                         f"{PROBE_IMPLS}")
+    return "direct" if probe_impl == "auto" else probe_impl
 
 
-def _band_probe_rows(m: int, nb: int) -> int:
-    """Probe-block rows for a band pass: keep the expected build span of
-    one probe block within half the 16K-element band window.
-
-    Uniform probes span ~ (probes_per_block) * nb / m build rows; pr=512
-    works for build sides <= ~m/8 but tripped the overflow boundary at
-    nb = m/4 (measured: 16M probes x 4M build fell to the merge path).
-    """
-    from cl_ops_tpu.ops.exec import bandprobe
-    pr = bandprobe.PROBE_ROWS
-    while pr > 128 and pr * bandprobe.LANES * nb > 8192 * m:
-        pr //= 2
-    return pr
-
-
-def _banded_passes(bl, vals_i32, plimbs, passes, extra_cols=(),
-                   defer_overflow: bool = False):
-    """Run band probes over sorted probes.
-
-    Sorts the probes ONCE (with their position as payload, plus any
-    caller-supplied i32 `extra_cols` riding the same sort — the
-    probe-payload channel of sorted_output joins), runs one band pass
-    per entry of `passes` (each maps sorted limbs -> probe limbs), and
-    returns (pos_sorted, sorted limbs, results, sorted extra cols, ovf)
-    with results per SORTED probe.
-
-    Overflow (extreme skew: a probe block's build range exceeds the band
-    window) makes the results unusable. Default: one host read per pass
-    (`bool(ovf)`); results come back as None and the caller falls back to
-    the merge probe. defer_overflow=True keeps everything on device — no
-    host sync, fully jit-traceable — and returns the OR of the passes'
-    flags as a device bool for the caller to check asynchronously
-    (results are garbage when it reads True).
-    """
-    from cl_ops_tpu.ops.exec import bandprobe
-    from cl_ops_tpu.utils.platform import pallas_interpret
+def _sort_probes(plimbs, extra_cols=()):
+    """Probes sorted by (key, position): (spos, sorted limbs, sorted extra
+    columns). The position makes the order total, so extra columns ride
+    as payload."""
     m = plimbs[0].shape[0]
-    pos = jnp.arange(m, dtype=jnp.int32)
     nl = len(plimbs)
-    sp = _jit_sort_cols((*plimbs, pos, *extra_cols), num_keys=nl + 1,
-                        pad_safe=True)
-    sp_limbs, spos = tuple(sp[:nl]), sp[nl]
-    scols = tuple(sp[nl + 1:])
-    interp = pallas_interpret()
-    pr = _band_probe_rows(m, bl[0].shape[0])
-    results = []
-    ovf_any = jnp.zeros((), jnp.bool_)
-    for fn in passes:
-        qlimbs = fn(sp_limbs)
-        count, eq, vp, vn, ovf = bandprobe.probe_banded_sorted(
-            tuple(bl), vals_i32, tuple(qlimbs), interpret=interp,
-            probe_rows=pr)
-        if defer_overflow:
-            ovf_any = jnp.logical_or(ovf_any, ovf)
-        elif bool(ovf):  # extreme skew: window exceeded -> merge fallback
-            return None, None, None, None, None
-        results.append((count, eq, vp, vn))
-    return spos, sp_limbs, results, scols, ovf_any
+    pos = jax.lax.broadcasted_iota(jnp.int32, (m,), 0)
+    sp = psort.sort_i32_cols((*plimbs, pos, *extra_cols), num_keys=nl + 1)
+    return sp[nl], tuple(sp[:nl]), tuple(sp[nl + 1:])
 
 
-def _probe_sorted(build_keys_sorted, build_vals_sorted, probe_keys,
-                  use_pallas: bool = True, probe_impl: str = "auto",
-                  sorted_output: bool = False, probe_cols_enc=(),
-                  defer_overflow: bool = False):
-    """Unique-build-key probe: (found, vals, spos|None, pcols|None, ovf).
+def _bounds(bl, vcols, qlimbs):
+    """(upper bound, lower bound, first-match value columns) per query:
+    rows lb..ub-1 of the sorted build side match. The lower bound is the
+    upper bound of key-1 in limb space (key == limb minimum: 0)."""
+    ub, _, _, _ = search_build(bl, vcols, qlimbs)
+    qm1, is_min = _limbs_minus_one(qlimbs)
+    lb, _, _, vns = search_build(bl, vcols, qm1)
+    # minimum-key probes: the key-1 pass's val_next points past the
+    # match run — the first match is slot 0 of each value column
+    first = tuple(jnp.where(is_min, v[0], c) for v, c in zip(vcols, vns))
+    return ub, jnp.where(is_min, 0, lb), first
 
-    ovf is None unless defer_overflow (see _banded_passes; only the
-    banded strategy can raise it — elsewhere it is a constant False).
 
-    probe_cols_enc: encoded i32 probe-side payload columns. On the banded
-    strategy they ride the probe sort (returned in output order as the
-    4th element); None means the caller reorders them itself (original
-    order or via spos).
+@functools.partial(jax.jit, static_argnames=("strat", "sorted_output"))
+def _probe_unique(bl, vcols, plimbs, probe_cols_enc, *, strat: str,
+                  sorted_output: bool):
+    """Unique-build-key probe: (found, val cols, spos|None, pcols|None).
 
-    Small build sides (<= bandprobe.DIRECT_MAX rows) take the direct band
-    kernel: binary-search counts in ORIGINAL probe order — no probe sort,
-    no restore sort. Larger builds sort the probes, band-probe them, and
-    restore with one 2-column sort (bandprobe.py); band overflow (extreme
-    skew) and use_pallas=False fall back to the merge-structured probe.
-    sorted_output skips the restore sorts: outputs arrive grouped in
-    ascending probe-key order (every strategy — _probe_strategy excludes
-    "direct") and spos maps output rows to original probe rows. Pallas
-    pipelines are staged into separate jit modules (see _jit_sort_cols);
-    limb/bitcast glue runs via tiny jits.
-    """
-    bl = _jit_limbs(build_keys_sorted)
-    plimbs = _jit_limbs(probe_keys)
-    vcols = _jit_val_cols(build_vals_sorted)
-    vdt = build_vals_sorted.dtype
-    strat = _probe_strategy(build_keys_sorted.shape[0], use_pallas,
-                            probe_impl, sorted_output)
-    no_ovf = jnp.zeros((), jnp.bool_) if defer_overflow else None
+    direct: a binary search per probe, in original probe order; with
+    sorted_output the probes (and their payload columns) are sorted
+    first. merge: the sort-merge rank."""
     if strat == "direct":
-        from cl_ops_tpu.ops.exec import bandprobe
-        from cl_ops_tpu.utils.platform import pallas_interpret
-        _, eq, vps, _ = bandprobe.probe_direct(
-            bl, vcols, plimbs, interpret=pallas_interpret())
-        return eq, _val_from_cols(vps, vdt), None, None, no_ovf
-    if strat == "banded":
-        spos, _, res, scols, ovf = _banded_passes(
-            bl, vcols, plimbs, [lambda s: s],
-            extra_cols=probe_cols_enc if sorted_output else (),
-            defer_overflow=defer_overflow)
-        if res is not None:
-            _, eq, vp, _ = res[0]
-            if sorted_output:  # skip the restore sort entirely
-                return eq, _val_from_cols(vp, vdt), spos, scols, ovf
-            m = spos.shape[0]
-            if 2 * m < _PACK_MAX:
-                # restore: pos rides the key with eq in the low bit
-                key3 = spos * 2 + eq.astype(jnp.int32)
-                out = _jit_sort_cols((key3, *vp), num_keys=1,
-                                     pad_safe=True)
-                return ((out[0] & 1) > 0,
-                        _val_from_cols(out[1:], vdt), None, None, ovf)
-            # two-limb rank restore (n up to 2^31): spos is unique, so
-            # eq rides as an inert column instead of packing into the key
-            out = _jit_sort_cols((spos, eq.astype(jnp.int32), *vp),
-                                 num_keys=1, pad_safe=True)
-            return (out[1] > 0, _val_from_cols(out[2:], vdt), None, None,
-                    ovf)
+        if not sorted_output:
+            _, eq, vp, _ = search_build(bl, vcols, plimbs)
+            return eq, vp, None, None
+        spos, sp_limbs, scols = _sort_probes(plimbs, probe_cols_enc)
+        _, eq, vp, _ = search_build(bl, vcols, sp_limbs)
+        return eq, vp, spos, scols
     _, eq, val_prev, _, spos = _merge_rank(bl, vcols, plimbs,
-                                           use_pallas=use_pallas,
                                            sorted_output=sorted_output)
-    return eq, _val_from_cols(val_prev, vdt), spos, None, no_ovf
+    return eq, val_prev, spos, None
 
 
-_jit_limbs_minus_one = jax.jit(lambda limbs: _limbs_minus_one(limbs))
-
-
-def _probe_sorted_multi(build_keys_sorted, build_vals_sorted, probe_keys,
-                        use_pallas: bool = True, probe_impl: str = "auto",
-                        sorted_output: bool = False, probe_cols_enc=(),
-                        defer_overflow: bool = False):
-    """Non-unique probe: (match_count, first_vals, spos|None, pcols|None,
-    ovf) — ovf as in _probe_sorted.
-
-    Upper bound (#build <= key) from one pass; lower bound (#build < key)
-    = #build <= key-1 in integer limb space from a second pass on key-1
-    (key == limb minimum short-circuits to 0). The first match value sits
-    at the lower bound — the second pass's val_next. Both passes ride the
-    band kernels when applicable (key-1 preserves sorted order, so the
-    banded path reuses one probe sort and restores once — or not at all
-    with sorted_output, which returns the probe-row map spos instead).
-    """
-    bl = _jit_limbs(build_keys_sorted)
-    plimbs = _jit_limbs(probe_keys)
-    vcols = _jit_val_cols(build_vals_sorted)
-    vdt = build_vals_sorted.dtype
-    strat = _probe_strategy(build_keys_sorted.shape[0], use_pallas,
-                            probe_impl, sorted_output)
-
-    no_ovf = jnp.zeros((), jnp.bool_) if defer_overflow else None
-
-    def first_match_fix(is_min, vn_cols):
-        # minimum-key probes: the lb pass's val_next points past the
-        # match run — the first match is slot 0 of each value column
-        return tuple(jnp.where(is_min, v[0], c)
-                     for v, c in zip(vcols, vn_cols))
-
+@functools.partial(jax.jit, static_argnames=("strat", "sorted_output"))
+def _probe_multi(bl, vcols, plimbs, probe_cols_enc, *, strat: str,
+                 sorted_output: bool):
+    """Non-unique probe: (match_count, first-match val cols, spos|None,
+    pcols|None). Upper bound (#build <= key) minus lower bound (#build <
+    key, the upper bound of key-1 in limb space)."""
     if strat == "direct":
-        from cl_ops_tpu.ops.exec import bandprobe
-        from cl_ops_tpu.utils.platform import pallas_interpret
-        interp = pallas_interpret()
-        ub, _, _, _ = bandprobe.probe_direct(bl, vcols, plimbs,
-                                             interpret=interp)
-        pm1, is_min = _jit_limbs_minus_one(plimbs)
-        lb, _, _, vns = bandprobe.probe_direct(
-            bl, vcols, pm1, interpret=interp)
-        lb = jnp.where(is_min, 0, lb)
-        count = ub - lb
-        return (count, _val_from_cols(first_match_fix(is_min, vns), vdt),
-                None, None, no_ovf)
-    if strat == "banded":
-        def minus_one(s):
-            q, _ = _jit_limbs_minus_one(tuple(s))
-            return q
-        spos, sp_limbs, res, scols, ovf = _banded_passes(
-            bl, vcols, plimbs, [lambda s: s, minus_one],
-            extra_cols=probe_cols_enc if sorted_output else (),
-            defer_overflow=defer_overflow)
-        if res is not None:
-            ub, _, _, _ = res[0]
-            lb, _, _, vns = res[1]
-            # the lb pass ran on key-1 of the SORTED limbs; is_min marks
-            # probes at the limb minimum (lower bound short-circuits to 0)
-            _, is_min = _jit_limbs_minus_one(tuple(sp_limbs))
-            lb = jnp.where(is_min, 0, lb)
-            val_cols = first_match_fix(is_min, vns)
-            count = ub - lb
-            if sorted_output:  # skip the restore sort entirely
-                return count, _val_from_cols(val_cols, vdt), spos, scols, \
-                    ovf
-            # restore: (pos, count, first_val...) in one column sort
-            out = _jit_sort_cols((spos, count, *val_cols), num_keys=1,
-                                 pad_safe=True)
-            return out[1], _val_from_cols(out[2:], vdt), None, None, ovf
-    # Merge fallback: its two passes sort probes INDEPENDENTLY, by key and
-    # by key-1, and those orders can interleave differently where min and
+        if not sorted_output:
+            ub, lb, first = _bounds(bl, vcols, plimbs)
+            return ub - lb, first, None, None
+        spos, sp_limbs, scols = _sort_probes(plimbs, probe_cols_enc)
+        ub, lb, first = _bounds(bl, vcols, sp_limbs)
+        return ub - lb, first, spos, scols
+    # Merge: its two passes sort probes INDEPENDENTLY, by key and by
+    # key-1, and those orders can interleave differently where min and
     # min+1 keys coexist (key-1 ties them) — so sorted_output cannot skip
     # the restores here; compute in original order first.
-    ub, _, _, _, _ = _merge_rank(bl, vcols, plimbs,
-                                 use_pallas=use_pallas)
-    pm1, is_min = _jit_limbs_minus_one(plimbs)
-    lb, _, _, vns, _ = _merge_rank(bl, vcols, pm1,
-                                   use_pallas=use_pallas)
-    lb = jnp.where(is_min, 0, lb)
-    count = ub - lb
-    val_cols = first_match_fix(is_min, vns)
-    if sorted_output:
-        # honor the grouped-output contract with one key sort ((limbs,
-        # pos) is a total order, so the grouping is deterministic)
-        m = plimbs[0].shape[0]
-        pos = jnp.arange(m, dtype=jnp.int32)
-        nl = len(plimbs)
-        out = _jit_sort_cols((*plimbs, pos, count, *val_cols),
-                             num_keys=nl + 1, pad_safe=True)
-        return (out[nl + 1], _val_from_cols(out[nl + 2:], vdt),
-                out[nl], None, no_ovf)
-    return count, _val_from_cols(val_cols, vdt), None, None, no_ovf
-
-
-@functools.lru_cache(maxsize=None)
-def _default_build_sorter(dtype, use_pallas: bool):
-    from cl_ops_tpu.ops.sort import sort_new
-    name = "abitonic" if (use_pallas
-                          and jnp.dtype(dtype).itemsize == 4) else "xla"
-    return sort_new(name, elem_dtype=dtype)
+    ub, _, _, _, _ = _merge_rank(bl, vcols, plimbs)
+    pm1, is_min = _limbs_minus_one(plimbs)
+    lb, _, _, vns, _ = _merge_rank(bl, vcols, pm1)
+    count = ub - jnp.where(is_min, 0, lb)
+    first = tuple(jnp.where(is_min, v[0], c) for v, c in zip(vcols, vns))
+    if not sorted_output:
+        return count, first, None, None
+    # honor the grouped-output contract with one key sort ((limbs, pos)
+    # is a total order, so the grouping is deterministic)
+    m = plimbs[0].shape[0]
+    nl = len(plimbs)
+    pos = jax.lax.broadcasted_iota(jnp.int32, (m,), 0)
+    out = psort.sort_i32_cols((*plimbs, pos, count, *first),
+                              num_keys=nl + 1)
+    return out[nl + 1], tuple(out[nl + 2:]), out[nl], None
 
 
 def hash_join(build_keys, build_vals, probe_keys, *, build_sorted=False,
-              sorter=None, use_pallas: bool = True,
-              unique_build: bool = True, join_type: str = "inner",
+              sorter=None, unique_build: bool = True, join_type: str = "inner",
               probe_impl: str = "auto", sorted_output: bool = False,
               probe_cols=(), defer_overflow: bool = False):
     """Equi-join probe of the fact side against the build side.
 
     Args:
       build_keys: keys of the build (dimension) side.
-      build_vals: values carried per build key. 4-byte values ride the
-        Pallas kernels as one i32 column; 8-byte values as two i32 limb
-        columns (other widths fall back to lax.sort).
+      build_vals: values carried per build key (int/float of 1, 2, 4 or 8
+        bytes; they ride as i32 columns, psort.cols_to_i32).
       probe_keys: fact-side keys to look up.
       build_sorted: set True when build_keys are already ascending.
-      sorter: registry Sorter for the build side (defaults to the Pallas
-        "abitonic" for 4-byte keys, else "xla").
-      use_pallas: run the probe sorts through the Pallas bitonic.
+      sorter: registry Sorter for the build side (default "xla").
       unique_build: build keys are unique (dimension-table case).
       join_type: "inner" | "semi" | "anti".
-      probe_impl: "auto" (direct band kernel for small builds, sorted
-        band probe otherwise, merge fallback on band overflow) |
-        "direct" | "banded" | "merge". "direct"/"banded" require the
-        Pallas path (use_pallas=True and 4-byte build values).
+      probe_impl: "auto" (= "direct") | "direct" | "merge". "direct"
+        binary-searches the sorted build side per probe (probe.py);
+        "merge" ranks probes in one sort of build ++ probe.
       sorted_output: return a THIRD element `probe_rows` and skip the
         restore sorts — output rows come back GROUPED IN ASCENDING
-        PROBE-KEY ORDER on every strategy (auto avoids "direct", which
-        keeps original order and is rejected if pinned explicitly;
-        aggregate consumers may rely on keys_sorted=True downstream) and
-        probe_rows[i] is the original probe row of output row i. The
-        banded 16Mx1M pipeline spends about a third of its time
-        restoring original order; consumers that re-sort anyway
+        PROBE-KEY ORDER on every strategy (aggregate consumers may rely on
+        keys_sorted=True downstream) and probe_rows[i] is the original
+        probe row of output row i. Consumers that re-sort anyway
         (aggregates) or carry several probe columns should pass True.
       probe_cols: extra probe-side payload columns (fact measures etc.),
         returned reordered to match the output rows (requires
-        sorted_output). On the banded strategy they ride the probe sort
-        itself; elsewhere they reorder through probe_rows.
+        sorted_output). On the direct strategy they ride the probe sort
+        itself; on merge they reorder through probe_rows.
+      defer_overflow: appends a trailing device bool, the serving form's
+        overflow flag (the single-chip analog of the distributed
+        operators' check="defer"). No strategy can overflow, so it is
+        always False; the slot stays for callers that check it.
 
-      defer_overflow: the serving form (the single-chip analog of the
-        distributed operators' check="defer"). Skips the per-band-pass
-        host reads of the overflow flag, making EVERY strategy fully
-        jit-traceable, and appends the flag as a trailing device bool:
-        False ⇔ the outputs are exact; True means a band window
-        overflowed under extreme skew and the results are garbage —
-        re-run with probe_impl="merge". Non-banded strategies return a
-        constant False.
-
-    NOT wrappable in jax.jit when the banded strategy is in play UNLESS
-    defer_overflow=True: the band-overflow fallback reads `bool(ovf)` on
-    a device array (a host sync per band pass;
-    TracerBoolConversionError under an outer jit). Pipelines that must
-    stay in ONE jit pin probe_impl="direct" (small build sides) or
-    "merge", or pass defer_overflow=True and check the flag
-    asynchronously, as models/pipeline.py does.
+    Every strategy is jit-traceable.
 
     Returns:
       inner + unique_build: (found, vals) — vals undefined where not
@@ -600,191 +264,67 @@ def hash_join(build_keys, build_vals, probe_keys, *, build_sorted=False,
     if probe_cols and not sorted_output:
         raise ValueError("probe_cols requires sorted_output=True (in "
                          "original order the inputs are already aligned)")
-    vdt = jnp.dtype(build_vals.dtype)
-    if use_pallas and (vdt.kind not in "iuf" or vdt.itemsize not in (4, 8)):
-        use_pallas = False  # 8-byte values ride as two i32 limb columns
+    strat = _probe_strategy(probe_impl)
     if not build_sorted:
-        if sorter is None:
-            sorter = _default_build_sorter(jnp.dtype(build_keys.dtype).name,
-                                           use_pallas)
+        sorter = sorter or _default_build_sorter(
+            jnp.dtype(build_keys.dtype).name)
         build_keys, build_vals = sorter.sort_with_device_data(
             build_keys, build_vals)
     pc_enc, pc_spec = (psort.cols_to_i32(tuple(probe_cols))
                        if probe_cols else ((), ()))
-    if unique_build:
-        found, vals, spos, scols, ovf = _probe_sorted(
-            build_keys, build_vals, probe_keys, use_pallas=use_pallas,
-            probe_impl=probe_impl, sorted_output=sorted_output,
-            probe_cols_enc=pc_enc, defer_overflow=defer_overflow)
-    else:
-        count, vals, spos, scols, ovf = _probe_sorted_multi(
-            build_keys, build_vals, probe_keys, use_pallas=use_pallas,
-            probe_impl=probe_impl, sorted_output=sorted_output,
-            probe_cols_enc=pc_enc, defer_overflow=defer_overflow)
-        found = count > 0
-    # every sorted_output strategy returns a real probe-row map (direct,
-    # which keeps original order, is excluded by _probe_strategy)
-    assert spos is not None or not sorted_output
+    bl = tuple(keymod.to_limbs(build_keys))
+    plimbs = tuple(keymod.to_limbs(probe_keys))
+    vcols = _val_cols(build_vals)
+    probe = _probe_unique if unique_build else _probe_multi
+    first, vals, spos, scols = probe(bl, vcols, plimbs, pc_enc, strat=strat,
+                                     sorted_output=sorted_output)
+    vals = _val_from_cols(vals, build_vals.dtype)
+    found = first if unique_build else first > 0
     out_cols = ()
     if probe_cols:
         if scols is None:  # strategy did not carry them: one gather each
             scols = tuple(jnp.take(c, spos) for c in pc_enc)
         out_cols = (psort.cols_from_i32(scols, pc_spec),)
-    tail = (ovf,) if defer_overflow else ()
     if join_type == "semi":
-        out = (found, spos, *out_cols) if sorted_output else (found,)
+        out = (found,)
     elif join_type == "anti":
-        na = jnp.logical_not(found)
-        out = (na, spos, *out_cols) if sorted_output else (na,)
-    elif unique_build:
-        out = ((found, vals, spos, *out_cols) if sorted_output
-               else (found, vals))
+        out = (jnp.logical_not(found),)
     else:
-        out = ((count, vals, spos, *out_cols) if sorted_output
-               else (count, vals))
-    out = out + tail
+        out = (first, vals)
+    if sorted_output:
+        out = out + (spos, *out_cols)
+    if defer_overflow:
+        out = out + (jnp.zeros((), jnp.bool_),)
     return out[0] if len(out) == 1 else out
 
 
-def _ranges_sorted(bl, vals_i32, plimbs, use_pallas, probe_impl):
+@functools.lru_cache(maxsize=None)
+def _default_build_sorter(dtype):
+    from cl_ops_tpu.ops.sort import sort_new
+    return sort_new("xla", elem_dtype=dtype)
+
+
+@functools.partial(jax.jit, static_argnames=("strat",))
+def _ranges_sorted(bl, vcols, plimbs, *, strat: str):
     """Per-SORTED-probe match ranges: (spos, ub, lb).
 
     ub/lb are the searchsorted right/left bounds into the sorted build
-    side; rows lb..ub-1 are the probe's matches. Band strategies come out
-    in sorted order natively; the merge fallback computes in original
-    order and sorts (limbs, pos, ub, lb) once to align.
+    side; rows lb..ub-1 are the probe's matches, and probes come out in
+    (key, position) order.
     """
-    nb = bl[0].shape[0]
-    m = plimbs[0].shape[0]
-    strat = _probe_strategy(nb, use_pallas, probe_impl)
-    if strat in ("direct", "banded"):
-        def minus_one(s):
-            q, _ = _jit_limbs_minus_one(tuple(s))
-            return q
-        spos, sp_limbs, res, _, _ = _banded_passes(bl, vals_i32, plimbs,
-                                                   [lambda s: s, minus_one])
-        if res is not None:
-            ub = res[0][0]
-            lb = res[1][0]
-            _, is_min = _jit_limbs_minus_one(tuple(sp_limbs))
-            return spos, ub, jnp.where(is_min, 0, lb)
-    ub, _, _, _, _ = _merge_rank(bl, vals_i32, plimbs,
-                                 use_pallas=use_pallas)
-    pm1, is_min = _jit_limbs_minus_one(plimbs)
-    lb, _, _, _, _ = _merge_rank(bl, vals_i32, pm1, use_pallas=use_pallas)
+    if strat == "direct":
+        spos, sp_limbs, _ = _sort_probes(plimbs)
+        ub, lb, _ = _bounds(bl, vcols, sp_limbs)
+        return spos, ub, lb
+    ub, _, _, _, _ = _merge_rank(bl, vcols, plimbs)
+    pm1, is_min = _limbs_minus_one(plimbs)
+    lb, _, _, _, _ = _merge_rank(bl, vcols, pm1)
     lb = jnp.where(is_min, 0, lb)
-    pos = jnp.arange(m, dtype=jnp.int32)
-    cols = (*plimbs, pos, ub, lb)
-    if use_pallas:
-        out = _jit_sort_cols(cols)
-    else:
-        out = _lax_sort_cols(cols, num_keys=len(plimbs) + 1)
+    m = plimbs[0].shape[0]
     nl = len(plimbs)
+    pos = jax.lax.broadcasted_iota(jnp.int32, (m,), 0)
+    out = psort.sort_i32_cols((*plimbs, pos, ub, lb), num_keys=nl + 1)
     return out[nl], out[nl + 1], out[nl + 2]
-
-
-@functools.partial(jax.jit, static_argnames=("num_keys",))
-def _lax_sort_cols(cols, num_keys: int):
-    return tuple(jax.lax.sort(list(cols), num_keys=num_keys))
-
-
-@jax.jit
-def _prefix_inc(ub, lb):
-    return jnp.cumsum(ub - lb, dtype=jnp.int32)
-
-
-@functools.partial(jax.jit, static_argnames=("capacity",))
-def _expand_glue(sposj, valsr, prefix_inc, capacity: int):
-    """Assemble banded-expansion outputs from the band-pass results."""
-    total = prefix_inc[prefix_inc.shape[0] - 1]
-    r = jnp.arange(capacity, dtype=jnp.int32)
-    valid = r < jnp.minimum(total, jnp.int32(capacity))
-    pidx = jnp.where(valid, sposj, jnp.int32(-1))
-    return total, pidx, valsr
-
-
-def _expand_from_ranges_banded(spos, ub, lb, svcols, capacity: int):
-    """Band-kernel expansion: two band passes over sorted-ish queries.
-
-    Pass 1 searches the inclusive match-count prefix with the output rows
-    r=0..cap-1 as (already sorted) probes, carrying (prefix, lb, spos) as
-    three value columns in ONE kernel launch: the searchsorted-right
-    count IS the segment id j, val_prev[0] IS the exclusive prefix at j,
-    and val_next[1..2] ARE lb[j] / spos[j] (val_next = vals[count]).
-    Queries clamp at total-1 so trailing rows past the true match total
-    replicate the last valid query instead of reading vals[m] garbage.
-    Pass 2 gathers the build values as a band search over iota keys
-    (val_prev = v[idx]). Its queries bpos are NON-monotone: a duplicate
-    probe key dips back to its range's lb at each segment restart, so
-    pass 2 passes EXACT per-block query min/max (one cheap XLA block
-    reduction over bpos) as explicit block_bounds — without them a dip
-    below a window-block boundary silently returned the window-start
-    value.
-
-    SPARSE ranges (few matches per spanned probe) make one output
-    block's bpos span more build rows than the 16K-element band window —
-    pass 2 then falls back to a plain XLA gather of svals at bpos
-    (pass 1's segment search is kept; only the value pull changes). The
-    old whole-function fallback redid the segment search with
-    jnp.searchsorted — ~24 rounds of random gathers per output, 49 s at
-    64M rows vs one round for the direct gather. Pass-1 overflow (the
-    prefix window itself exceeded — only under extreme alignment skew)
-    still returns None -> full XLA fallback.
-    """
-    from cl_ops_tpu.ops.exec import bandprobe
-    from cl_ops_tpu.utils.platform import pallas_interpret
-    interp = pallas_interpret()
-    nb = svcols[0].shape[0]
-    # 128-row probe blocks: 16K outputs per grid step <= the 16K-element
-    # band window, so expansions with >= 1 match per spanned probe never
-    # overflow (512-row blocks tripped the window exactly at 4 matches/
-    # probe).
-    pr = 128
-    prefix_inc, rq = _expand_pass1_queries(ub, lb, capacity)
-    j, _, vps, vns, ovf1 = bandprobe.probe_banded_sorted(
-        (prefix_inc,), (prefix_inc, lb, spos), (rq,), interpret=interp,
-        probe_rows=pr)
-    if bool(ovf1):
-        return None
-    lbj, sposj = vns[1], vns[2]
-    bpos, blo, bhi = _expand_pass2_inputs(lbj, rq, j, vps[0], nb,
-                                          pr * bandprobe.LANES)
-    _, _, valsr, _, ovf2 = bandprobe.probe_banded_sorted(
-        (jnp.arange(nb, dtype=jnp.int32),), tuple(svcols), (bpos,),
-        interpret=interp, probe_rows=pr, block_bounds=((blo,), (bhi,)))
-    if bool(ovf2):  # sparse: direct gather instead of the band windows
-        valsr = _jit_gather(tuple(svcols), bpos)
-    return _expand_glue(sposj, valsr, prefix_inc, capacity)
-
-
-@jax.jit
-def _jit_gather(val_cols, idx):
-    return tuple(jnp.take(v, idx) for v in val_cols)
-
-
-@functools.partial(jax.jit, static_argnames=("capacity",))
-def _expand_pass1_queries(ub, lb, capacity: int):
-    """(prefix_inc, clamped query rows) for the banded expansion pass 1."""
-    prefix_inc = jnp.cumsum(ub - lb, dtype=jnp.int32)
-    total = prefix_inc[prefix_inc.shape[0] - 1]
-    r = jnp.arange(capacity, dtype=jnp.int32)
-    rq = jnp.minimum(r, jnp.maximum(total - 1, 0))
-    return prefix_inc, rq
-
-
-@functools.partial(jax.jit, static_argnames=("nb", "block"))
-def _expand_pass2_inputs(lbj, rq, j, pex_raw, nb: int, block: int):
-    """Pass-2 queries + their exact per-output-block min/max bounds."""
-    # j == 0 rows sit before the first prefix entry: exclusive prefix 0.
-    pex = jnp.where(j == 0, 0, pex_raw)
-    bpos = jnp.clip(lbj + (rq - pex), jnp.int32(0), jnp.int32(nb - 1))
-    capacity = rq.shape[0]
-    grid = (capacity + block - 1) // block
-    bp = bpos
-    if grid * block != capacity:  # edge-pad: pads never widen the bounds
-        bp = jnp.pad(bpos, (0, grid * block - capacity), mode="edge")
-    b2 = bp.reshape(grid, block)
-    return bpos, b2.min(axis=1), b2.max(axis=1)
 
 
 @functools.partial(jax.jit, static_argnames=("capacity",))
@@ -817,7 +357,7 @@ def _expand_from_ranges(spos, ub, lb, svcols, capacity: int):
 
 def hash_join_expand(build_keys, build_vals, probe_keys, *, capacity: int,
                      build_sorted=False, sorter=None,
-                     use_pallas: bool = True, probe_impl: str = "auto"):
+                     probe_impl: str = "auto"):
     """Emit ALL matching (probe row, build value) pairs, capacity-bounded.
 
     The full inner-join expansion `hash_join` cannot return (no static
@@ -830,8 +370,7 @@ def hash_join_expand(build_keys, build_vals, probe_keys, *, capacity: int,
         it the output is TRUNCATED — check `total` and re-run with a
         larger capacity (the same contract as partition_exchange's
         fixed-capacity buckets).
-      (other args as `hash_join`; like it, the banded path host-syncs on
-      band-overflow flags and is not wrappable in an outer jax.jit.)
+      (other args as `hash_join`.)
 
     Returns:
       (total, probe_idx, vals): `total` (i32 scalar) counts all matches;
@@ -844,26 +383,17 @@ def hash_join_expand(build_keys, build_vals, probe_keys, *, capacity: int,
     if probe_keys.shape[0] == 0 or build_keys.shape[0] == 0:
         return (jnp.int32(0), jnp.full((capacity,), -1, jnp.int32),
                 jnp.zeros((capacity,), build_vals.dtype))
-    vdt = jnp.dtype(build_vals.dtype)
-    if use_pallas and (vdt.kind not in "iuf" or vdt.itemsize not in (4, 8)):
-        use_pallas = False  # 8-byte values ride as two i32 limb columns
+    strat = _probe_strategy(probe_impl)
     if not build_sorted:
-        if sorter is None:
-            sorter = _default_build_sorter(jnp.dtype(build_keys.dtype).name,
-                                           use_pallas)
+        sorter = sorter or _default_build_sorter(
+            jnp.dtype(build_keys.dtype).name)
         build_keys, build_vals = sorter.sort_with_device_data(
             build_keys, build_vals)
-    bl = _jit_limbs(build_keys)
-    plimbs = _jit_limbs(probe_keys)
-    vcols = _jit_val_cols(build_vals)
-    spos, ub, lb = _ranges_sorted(bl, vcols, plimbs, use_pallas,
-                                  probe_impl)
-    out = None
-    if use_pallas:
-        out = _expand_from_ranges_banded(spos, ub, lb, vcols, capacity)
-    if out is None:  # use_pallas=False or band overflow (sparse ranges)
-        out = _expand_from_ranges(spos, ub, lb, vcols, capacity)
-    total, pidx, vals = out
+    vcols = _val_cols(build_vals)
+    spos, ub, lb = _ranges_sorted(tuple(keymod.to_limbs(build_keys)), vcols,
+                                  tuple(keymod.to_limbs(probe_keys)),
+                                  strat=strat)
+    total, pidx, vals = _expand_from_ranges(spos, ub, lb, vcols, capacity)
     return total, pidx, _val_from_cols(vals, build_vals.dtype)
 
 

@@ -1,40 +1,23 @@
-"""Raw-column Pallas bitonic sort for the exec operators.
+"""Multi-column i32 sorts for the exec operators, and their column codecs.
 
-The query operators (filter / aggregate / join) compose sorts the way the
-reference's satradix composes a scan object
+The query operators (filter / aggregate / join / window / top-k) compose
+sorts the way the reference's satradix composes a scan object
 (`src/cl_ops/sort/clo_sort_satradix.c:296-300`). They sort tuples of i32
 COLUMNS — normalized key limbs (keys.py) or `flag*n + position` combined
-ranks — rather than user-facing dtypes, so they call the flagship fused
-bitonic kernels (bitonic_kernels.py) directly instead of going through a
-Sorter object.
-
-Replaces the operators' previous `jax.lax.sort` calls (the vendor baseline
-the framework exists to beat): the fused Pallas kernels are ~1.6x faster at
-bench sizes on the v5e chip.
+ranks — rather than user-facing dtypes, so they call sort_i32_cols instead
+of going through a Sorter object. XLA's GPU sort hands one-operand and
+key-value sorts to CUB's radix sort and runs its own tiled sort kernel for
+wider tuples.
 
 Comparator convention: rows order by signed-i32 lexicographic comparison of
-ALL columns, in order. Callers make the leading column(s) unique (e.g. by
-mixing in the row position) so the remaining columns are inert payload.
+the key columns, in order. Callers make the leading column(s) unique (e.g.
+by mixing in the row position) so the remaining columns are inert payload.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-
-from cl_ops_tpu.ops.sort import bitonic as _bt
-from cl_ops_tpu.ops.sort import bitonic_kernels as bk
-from cl_ops_tpu.utils.platform import pallas_interpret
-
-# i32 max pads sort after every real row: the first column is either a
-# combined rank < 2n or a normalized key limb; when a real limb equals the
-# pad, the next column (a rank/merged id < 2n) breaks the tie real-first.
-_PAD = 0x7FFFFFFF
-
-
-def cols_sortable(*cols) -> bool:
-    """True when every column is 4-byte (rides the i32 kernels directly)."""
-    return all(jnp.dtype(c.dtype).itemsize == 4 for c in cols)
 
 
 def as_i32(c):
@@ -54,18 +37,9 @@ def from_i32(c, dtype):
 def flag_pos_key(flag_i32, n: int):
     """`flag * n + position`: one unique i32 key whose ascending sort is a
     STABLE partition — flag-0 rows move to the front in original order.
-    Requires 2n < 2^31 (callers gate on this and fall back to the
-    two-column (flag, position) rank — see filter_compact)."""
+    Requires 2n < 2^31 (callers gate on this)."""
     pos = jax.lax.broadcasted_iota(jnp.int32, (n,), 0)
     return flag_i32 * jnp.int32(n) + pos
-
-
-def cols_encodable(*cols) -> bool:
-    """True when every column has a cols_to_i32 encoding (int/uint/float
-    of 1/2/4/8 bytes — bool and complex cannot bitcast)."""
-    return all(jnp.dtype(c.dtype).kind in "iuf"
-               and jnp.dtype(c.dtype).itemsize in (1, 2, 4, 8)
-               for c in cols)
 
 
 def cols_to_i32(cols):
@@ -117,78 +91,21 @@ def cols_from_i32(enc, spec):
     return tuple(out)
 
 
-def sort_traffic_bytes(n: int, n_cols: int,
-                       vmem: int = 16 * 1024 * 1024) -> int:
-    """Bytes-moved model of sort_i32_cols (for roofline accounting)."""
-    from cl_ops_tpu.utils.bits import nlpo2
-    padded = max(nlpo2(n), bk.MIN_ROWS * bk.LANES)
-    rows = padded // bk.LANES
-    br = min(_bt._pick_block_rows(n_cols, vmem), 512, rows)
-    mr = max(min(_bt._pick_merge_rows(br), rows), br)
-    # + the pre-pad copy XLA makes when padding (read n, write padded)
-    pad_bytes = (n + padded) * 4 * n_cols if padded != n else 0
-    return bk.fused_traffic_bytes(padded, n_cols, br, mr) + pad_bytes
+def sort_traffic_bytes(n: int, n_cols: int) -> int:
+    """Least bytes a sort of n rows of n_cols i32 columns moves: every
+    column read once and written once (the roofline's lower bound)."""
+    return 2 * 4 * n * n_cols
 
 
-def sort_i32_cols(cols, *, interpret=None, vmem: int = 16 * 1024 * 1024,
-                  num_keys: int | None = None, pad_safe: bool = False):
-    """Sort rows ascending by lexicographic comparison of all i32 columns.
+def sort_i32_cols(cols, *, num_keys: int | None = None):
+    """Sort rows ascending by lexicographic comparison of i32 columns.
 
-    num_keys compares only the first num_keys columns; the rest ride as
-    pure payload (moved, never compared — rows stay atomic). The sorts
-    are VPU-bound (DESIGN.md §3), so payload columns are measurably
-    cheaper than key columns. Rows tied in the key prefix come out in
-    unspecified relative order: pass num_keys only when the prefix is
-    unique (it includes a position column) or the caller is
-    order-insensitive within ties (aggregation). NOTE the pad rows: with
-    num_keys the pad sentinel must still sort last by the PREFIX alone —
-    the leading column's i32-max pad guarantees that except for real
-    rows whose leading limb equals i32-max. Callers whose key prefix
-    cannot reach the all-sentinel row (a position/rank column inside the
-    prefix, or a bounded leading flag) pass pad_safe=True to keep
-    num_keys through padding; otherwise padding falls back to the total
-    comparator automatically (pad-tie rows could land inside the real
-    prefix and be sliced off).
-
-    Pads internally to a power of two with i32-max rows (sorted last) and
-    slices back — the "cheap non-pow2 handling" of VERDICT r1: one fused
-    pad fused into XLA's pipeline, not a separate sorter requirement.
+    num_keys compares only the first num_keys columns (default: all); the
+    rest ride as payload, moved and never compared, so rows stay atomic.
+    Rows tied in the key prefix come out in unspecified relative order:
+    pass num_keys only when the prefix is unique (it includes a position
+    column) or the caller is order-insensitive within ties (aggregation).
 
     Returns the reordered columns (same dtypes/lengths).
-
-    The default VMEM budget is 2x the Sorter default so 2-column sorts
-    keep 512-row blocks (at 256 rows the 32M x 2-column probe sorts ran at
-    ~52 GB/s effective vs ~128 for the single-column flagship); block_rows
-    is hard-capped at 512 — the 1024-row block-sort unroll produces an
-    MLIR module big enough to OOM the remote compile helper.
-
-    Env CL_OPS_PSORT_AUTOTUNE=1 routes geometry through the on-chip tuner
-    (ops/sort/autotune.py, cached per device/rows/columns) — the knob the
-    composite exec pipelines (filter/aggregate/join) use to tune their
-    internal sorts without threading options through every operator.
     """
-    if interpret is None:
-        interpret = pallas_interpret()
-    n = cols[0].shape[0]
-    dts = [c.dtype for c in cols]
-    arrs = [as_i32(c) for c in cols]
-    arrs2d, padded = bk.pad_and_reshape(arrs, [_PAD] * len(arrs))
-    rows = padded // bk.LANES
-    if num_keys is not None and (num_keys >= len(cols) or
-                                 (padded != n and not pad_safe)):
-        num_keys = None  # total comparator: no payload, or pad-tie risk
-    sl = None
-    import os
-    if os.environ.get("CL_OPS_PSORT_AUTOTUNE") == "1" and not interpret:
-        from cl_ops_tpu.ops.sort.autotune import tune_geometry
-        br, mr, sl = tune_geometry(rows, len(arrs))
-        br = min(br, rows)
-        mr = max(min(mr, rows), br)
-    else:
-        br = min(_bt._pick_block_rows(len(arrs), vmem), 512, rows)
-        mr = max(min(_bt._pick_merge_rows(br), rows), br)
-    out = bk.bitonic_sort_2d(tuple(arrs2d), block_rows=br, fused=True,
-                             merge_rows=mr, interpret=interpret,
-                             single_launch=sl, num_keys=num_keys)
-    return tuple(from_i32(a.reshape(-1)[:n], dt)
-                 for a, dt in zip(out, dts))
+    return tuple(jax.lax.sort(list(cols), num_keys=num_keys or len(cols)))

@@ -5,8 +5,8 @@ compose the framework's primitives (psort stable partition, filter
 compaction, boundary reduce) the way satradix composes its scan
 (`clo_sort_satradix.c:296-300`).
 
-top_k, TPU-first: a full sort moves every row through O(log^2) bitonic
-passes, but LIMIT k with k << n only needs the k extreme rows. So:
+top_k: a full sort moves every row through every pass of the sort, but
+LIMIT k with k << n only needs the k extreme rows. So:
 
   1. estimate a threshold t from a strided sample (the (safety*k/n)-th
      sample quantile) — one tiny sort;
@@ -37,19 +37,10 @@ from cl_ops_tpu.ops.exec import psort
 from cl_ops_tpu.ops.sort import keys as keymod
 
 
-def _sort_cols(cols, use_pallas, num_keys=None, pad_safe=False):
-    if use_pallas:
-        return psort.sort_i32_cols(cols, num_keys=num_keys,
-                                   pad_safe=pad_safe)
-    return tuple(jax.lax.sort(list(cols),
-                              num_keys=num_keys or len(cols)))
-
-
 @functools.partial(jax.jit, static_argnames=(
-    "k", "largest", "use_pallas", "oversample", "cap", "sample_size"))
+    "k", "largest", "oversample", "sample_size"))
 def top_k(values, k: int, *payload_cols, largest: bool = False,
-          use_pallas: bool = True, oversample: int = 4,
-          cap: int | None = None, sample_size: int = 16384):
+          oversample: int = 4, sample_size: int = 16384):
     """The k extreme rows of `values`, sorted, with payload columns.
 
     Args:
@@ -58,11 +49,8 @@ def top_k(values, k: int, *payload_cols, largest: bool = False,
       *payload_cols: same-length columns returned alongside (SELECT cols).
       largest: False (default) returns the k smallest ascending (ORDER BY
         v LIMIT k); True the k largest descending (ORDER BY v DESC).
-      use_pallas: False uses lax.sort everywhere (vendor baseline).
       oversample: threshold-quantile safety factor; higher = fewer exact
         fallbacks, more survivors to small-sort.
-      cap: unused since the r5 block-extraction rewrite (kept for API
-        compatibility; the per-block budget replaced the flat buffer).
       sample_size: strided threshold sample length.
 
     Returns:
@@ -90,8 +78,7 @@ def top_k(values, k: int, *payload_cols, largest: bool = False,
         # Small n, k ~ n, or multi-limb keys (a one-limb threshold cannot
         # cut multi-limb order exactly): exact full sort. (key, pos) is a
         # unique prefix, so payloads skip the comparator.
-        out = _sort_cols((*kl, pos, *enc), use_pallas,
-                         num_keys=len(kl) + 1, pad_safe=True)
+        out = psort.sort_i32_cols((*kl, pos, *enc), num_keys=len(kl) + 1)
         return take_k(out)
 
     limb = kl[0]
@@ -104,9 +91,7 @@ def top_k(values, k: int, *payload_cols, largest: bool = False,
     t = ssorted[j]
 
     # --- block-local survivor extraction (NO n-row sort) -------------------
-    # r4 paid a full (rank, value, pos, payload) stable-partition sort
-    # here — sort_traffic_bytes(n, 3+) for k << n survivors. Instead:
-    # reshape into W-wide blocks and pull up to _KB survivors per block
+    # Reshape into W-wide blocks and pull up to _KB survivors per block
     # with argmax+clear sweeps (a few elementwise passes over the mask),
     # then small-sort only the B*_KB candidates. Survivors are Poisson
     # ~oversample*k/B per block, so _KB bounds them with huge margin on
@@ -118,8 +103,7 @@ def top_k(values, k: int, *payload_cols, largest: bool = False,
         # expected survivors per W-block approach the KB budget — the
         # extraction would overflow and fall back anyway; go straight to
         # the exact sort
-        out = _sort_cols((*kl, pos, *enc), use_pallas,
-                         num_keys=len(kl) + 1, pad_safe=True)
+        out = psort.sort_i32_cols((*kl, pos, *enc), num_keys=len(kl) + 1)
         return take_k(out)
     n2 = ((n + W - 1) // W) * W
     limb2 = jnp.pad(limb, (0, n2 - n),
@@ -155,7 +139,7 @@ def top_k(values, k: int, *payload_cols, largest: bool = False,
         # candidates sorted by (value, pos): ties break by input position,
         # identical to the full sort's order; empties (i32-max, pos=n)
         # sort last and cannot reach slot k while count >= k
-        sv, sp = _sort_cols((cval, cpos), use_pallas)
+        sv, sp = psort.sort_i32_cols((cval, cpos))
         top_pos = jnp.minimum(sp[:k], n - 1)
         vl = [sv[:k]]
         if largest:
@@ -166,14 +150,13 @@ def top_k(values, k: int, *payload_cols, largest: bool = False,
         return (out_vals, *pays)
 
     def exact(_):
-        return take_k(_sort_cols((limb, pos, *enc), use_pallas,
-                                 num_keys=2, pad_safe=True))
+        return take_k(psort.sort_i32_cols((limb, pos, *enc), num_keys=2))
 
     return jax.lax.cond(ok, fast, exact, None)
 
 
-@functools.partial(jax.jit, static_argnames=("capacity", "use_pallas"))
-def distinct(keys_col, *, capacity: int, use_pallas: bool = True):
+@functools.partial(jax.jit, static_argnames=("capacity",))
+def distinct(keys_col, *, capacity: int):
     """SELECT DISTINCT: the unique values of a column, ascending.
 
     Sorts the KEY COLUMN ALONE on normalized limbs, then gathers each
@@ -188,12 +171,12 @@ def distinct(keys_col, *, capacity: int, use_pallas: bool = True):
     """
     from cl_ops_tpu.ops.exec.aggregate import _boundary_reduce_cols
     kl = keymod.to_limbs(keys_col)
-    out = _sort_cols(tuple(kl), use_pallas)
+    out = psort.sort_i32_cols(tuple(kl))
     skeys = keymod.from_limbs(list(out), keys_col.dtype)
     # "max" over the key itself with key_ordered=True is a pure ends
     # gather — the boundary machinery yields (group_keys, ..., count)
     # with no cumsum over any measure column.
     gk, _, cnt = _boundary_reduce_cols(
         skeys, (skeys,), num_groups=capacity, aggs=("max",),
-        key_ordered=(True,), use_pallas=use_pallas)
+        key_ordered=(True,))
     return gk, cnt

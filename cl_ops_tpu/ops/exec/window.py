@@ -2,7 +2,7 @@
 
 North-star query operator (SQL `agg(v) OVER (PARTITION BY k ORDER BY o)`).
 No referent in the reference library; composes the framework's own
-primitives — the Pallas multi-column sort (ops/exec/psort.py) and the
+primitives — the multi-column sort (ops/exec/psort.py) and the
 segmented scan (ops/scan/segmented.py) — the way satradix composes the
 plain scan (`clo_sort_satradix.c:296-300`).
 
@@ -47,14 +47,17 @@ def _limb_change_flags(limbs):
     return new.astype(jnp.int32)
 
 
-def _seg_count(flags, n, exclusive, use_pallas):
-    ones = jnp.ones((n,), jnp.int32)
-    return segmented_scan_1d(ones, flags, exclusive=exclusive,
-                             use_pallas=use_pallas)
+def _seg_count(flags, n, exclusive):
+    """Running row count within each segment: the distance from the
+    segment's start (a scan of ones, without the constant XLA would try
+    to fold at compile time)."""
+    pos = jax.lax.broadcasted_iota(jnp.int32, (n,), 0)
+    start = jax.lax.cummax(jnp.where(flags > 0, pos, jnp.int32(0)), axis=0)
+    return pos - start + (0 if exclusive else 1)
 
 
 def window_cols(keys, order, values, aggs, *, exclusive=False,
-                use_pallas=True, sorted_output=False):
+                sorted_output=False):
     """Compute window columns over one partition sort.
 
     Args:
@@ -92,13 +95,12 @@ def window_cols(keys, order, values, aggs, *, exclusive=False,
     if order is None and any(a in ("rank", "dense_rank") for a in aggs):
         raise ValueError("rank/dense_rank require an order column")
     return _window_cols(keys, order, values, aggs=aggs, exclusive=exclusive,
-                        use_pallas=use_pallas, sorted_output=sorted_output)
+                        sorted_output=sorted_output)
 
 
 @functools.partial(jax.jit, static_argnames=("aggs", "exclusive",
-                                             "use_pallas", "sorted_output"))
-def _window_cols(keys, order, values, *, aggs, exclusive, use_pallas,
-                 sorted_output):
+                                             "sorted_output"))
+def _window_cols(keys, order, values, *, aggs, exclusive, sorted_output):
     n = keys.shape[0]
     pos = jax.lax.broadcasted_iota(jnp.int32, (n,), 0)
     kl = keymod.to_limbs(keys)
@@ -114,11 +116,9 @@ def _window_cols(keys, order, values, *, aggs, exclusive, use_pallas,
     enc, spec = psort.cols_to_i32(tuple(uniq)) if uniq else ((), ())
 
     cols = (*kl, *ol, pos, *enc)
-    # (key, order, pos) is a UNIQUE prefix (pos < n also outranks the
-    # i32-max pad rows), so the measure columns ride as pure payload
-    nk = len(kl) + len(ol) + 1
-    out = psort.sort_i32_cols(cols, num_keys=nk, pad_safe=True) \
-        if use_pallas else tuple(jax.lax.sort(list(cols), num_keys=nk))
+    # (key, order, pos) is a UNIQUE prefix, so the measure columns ride
+    # as pure payload
+    out = psort.sort_i32_cols(cols, num_keys=len(kl) + len(ol) + 1)
     skl = out[:len(kl)]
     sol = out[len(kl):len(kl) + len(ol)]
     row_src = out[len(kl) + len(ol)]
@@ -139,7 +139,7 @@ def _window_cols(keys, order, values, *, aggs, exclusive, use_pallas,
     for a, v in zip(aggs, values):
         if a in ("row_number", "count"):
             if rownum is None:
-                rownum = _seg_count(flags, n, False, use_pallas)
+                rownum = _seg_count(flags, n, False)
             res = rownum - 1 if (a == "count" and exclusive) else rownum
             results.append(res)
             continue
@@ -147,11 +147,11 @@ def _window_cols(keys, order, values, *, aggs, exclusive, use_pallas,
             tie = flags | _limb_change_flags(list(sol))
             if a == "dense_rank":
                 results.append(segmented_scan_1d(
-                    tie, flags, exclusive=False, use_pallas=use_pallas))
+                    tie, flags, exclusive=False))
             else:
                 if rownum is None:
-                    rownum = _seg_count(flags, n, False, use_pallas)
-                in_tie = _seg_count(tie, n, False, use_pallas)
+                    rownum = _seg_count(flags, n, False)
+                in_tie = _seg_count(tie, n, False)
                 results.append(rownum - in_tie + 1)
             continue
         sv = sorted_measure(v)
@@ -168,18 +168,16 @@ def _window_cols(keys, order, values, *, aggs, exclusive, use_pallas,
         if a == "mean":
             s = segmented_scan_1d(sv, flags, sum_dtype=jnp.float32
                                   if sv.dtype.kind == "f" else None,
-                                  exclusive=exclusive,
-                                  use_pallas=use_pallas)
+                                  exclusive=exclusive)
             if rownum is None:
-                rownum = _seg_count(flags, n, False, use_pallas)
+                rownum = _seg_count(flags, n, False)
             cnt = rownum - 1 if exclusive else rownum
             results.append(s.astype(jnp.float32) /
                            jnp.maximum(cnt, 1).astype(jnp.float32))
             continue
         op = {"sum": "add", "min": "min", "max": "max"}[a]
         results.append(segmented_scan_1d(sv, flags, op=op,
-                                         exclusive=exclusive,
-                                         use_pallas=use_pallas))
+                                         exclusive=exclusive))
 
     if sorted_output:
         return tuple(results), row_src
@@ -188,16 +186,15 @@ def _window_cols(keys, order, values, *, aggs, exclusive, use_pallas,
     # every output column home together.
     renc, rspec = psort.cols_to_i32(tuple(results))
     rcols = (row_src, *renc)
-    rout = psort.sort_i32_cols(rcols, num_keys=1, pad_safe=True) \
-        if use_pallas else tuple(jax.lax.sort(list(rcols), num_keys=1))
+    rout = psort.sort_i32_cols(rcols, num_keys=1)
     return psort.cols_from_i32(rout[1:], rspec)
 
 
 def window_scan(keys, values, order=None, *, agg="sum", exclusive=False,
-                use_pallas=True, sorted_output=False):
+                sorted_output=False):
     """Single-measure window aggregate (see window_cols)."""
     out = window_cols(keys, order, (values,), (agg,), exclusive=exclusive,
-                      use_pallas=use_pallas, sorted_output=sorted_output)
+                      sorted_output=sorted_output)
     if sorted_output:
         return out[0][0], out[1]
     return out[0]

@@ -6,8 +6,8 @@ parkmiller, tauslcg) as *vectorized functional steps*: where the reference
 advances `states[index]` in place inside a kernel
 (e.g. `src/cl_ops/rng/clo_rng_lcg.cl:43-59`), each generator here is a pure
 function `step(states) -> (new_states, u32 draws)` over the whole stream
-array at once — one fused VPU pass under jit instead of per-work-item scalar
-code. The integer recurrences are reproduced exactly, so per-stream output
+array at once — one fused elementwise pass under jit instead of
+per-work-item scalar code. The integer recurrences are reproduced exactly, so per-stream output
 sequences are bit-identical to the reference generators given equal states.
 
 State layouts (per stream), mirroring each clo_statetype:
@@ -232,8 +232,8 @@ def _threefry_step(states):
 def _threefry_batch(states, draws: int):
     """All draws at once: counter-based = no sequential dependency.
 
-    vals[d, s] = threefry(stream_s, counter_s + d) — one fused VPU pass
-    over the whole (draws, streams) grid, where stateful generators need a
+    vals[d, s] = threefry(stream_s, counter_s + d) — one fused elementwise
+    pass over the whole (draws, streams) grid, where stateful generators need a
     lax.scan of `draws` dependent steps.
     """
     stream, counter = states[..., 0], states[..., 1]

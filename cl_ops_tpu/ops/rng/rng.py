@@ -1,6 +1,6 @@
 """RNG objects: seeding strategies, stream state, and the draw API.
 
-TPU-native re-expression of the reference's CloRNG class
+JAX re-expression of the reference's CloRNG class
 (`src/cl_ops/rng/clo_rng.c:262-446`). The reference object owns a device
 seed/state buffer and *provides kernel source* that clients compile into their
 own programs; here the Rng object owns a jnp state array and provides jitted
@@ -75,7 +75,7 @@ class Rng:
         """The generator's step function — the clo_rng_get_source analog.
 
         The reference hands clients OpenCL C source to compile into their
-        own programs (`clo_rng.c:431-446`); the TPU-native equivalent of
+        own programs (`clo_rng.c:431-446`); the JAX equivalent of
         "source you can embed" is the traced step callable: inline it into
         your own jitted function or Pallas kernel alongside `get_device_seeds`.
         """

@@ -3,15 +3,15 @@
 This is the framework's flagship generator, replacing the reference's
 per-stream stateful generators (`src/cl_ops/rng/clo_rng.c:60-68`) with a
 counter-based design: value = threefry(key, (stream, counter)). Counter-based
-generation is the TPU-idiomatic choice — no state round trips through HBM, any
-(stream, draw) coordinate is computable independently, so generation
-parallelizes perfectly over the VPU and over device meshes.
+generation is the data-parallel choice — no state round trips through memory,
+any (stream, draw) coordinate is computable independently, so generation
+parallelizes perfectly over vector lanes and over device meshes.
 
 Algorithm: Threefry-2x32 with 20 rounds, as specified in Salmon et al.,
 "Parallel Random Numbers: As Easy as 1, 2, 3" (SC'11). Verified against the
 Random123 known-answer tests. This is the same algorithm JAX's default PRNG
 uses, implemented here standalone so it can also be inlined into Pallas
-kernels (pure u32 add/xor/rotate — VPU-native).
+kernels (pure u32 add/xor/rotate — plain integer ops).
 """
 
 from __future__ import annotations

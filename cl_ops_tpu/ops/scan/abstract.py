@@ -1,6 +1,6 @@
 """Scan abstract class: named impls, dtype specialization, host/device entry.
 
-TPU-native re-expression of the reference's scan abstraction
+JAX re-expression of the reference's scan abstraction
 (`src/cl_ops/scan/clo_scan_abstract.c:74-362`, `.in.h:41-162`):
 
   - named implementation registry (`clo_scan_abstract.c:85-89`)
@@ -12,7 +12,7 @@ TPU-native re-expression of the reference's scan abstraction
     "host data" is a numpy array (H2D/D2H transfers are the device_put /
     np.asarray boundary)
   - kernel introspection: num kernels / kernel names / local-mem usage
-    (`clo_scan_abstract.in.h:144-162`) — local memory becomes VMEM here.
+    (`clo_scan_abstract.in.h:144-162`).
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ from cl_ops_tpu.core.dtypes import canonicalize, default_sum_dtype
 from cl_ops_tpu.core.errors import BadArgsError
 from cl_ops_tpu.core.registry import Registry, parse_options
 from cl_ops_tpu.ops.scan import kernels
-from cl_ops_tpu.utils.platform import pallas_interpret
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +38,9 @@ class ScanImplDef:
     # (elem_dtype, sum_dtype, options) -> jitted fn(x, exclusive) -> scanned
     make_fn: Callable[..., Callable]
     kernel_names: tuple[str, ...]
-    # VMEM bytes used per kernel for a given problem size (localmem analog).
-    vmem_usage: Callable[[str, int, dict], int]
+    # On-chip bytes one program of a kernel holds for a given problem size
+    # and (elem, sum) dtypes (the reference's localmem usage).
+    localmem_usage: Callable[[str, int, Any, Any, dict], int]
 
 
 scan_impls: Registry[ScanImplDef] = Registry("scan")
@@ -70,10 +70,11 @@ class Scan:
     def kernel_name(self, i: int) -> str:
         return self._impl.kernel_names[i]
 
-    def vmem_usage(self, kernel_name: str, numel: int) -> int:
-        """VMEM bytes for one kernel pass — the TPU analog of
-        clo_scan_get_localmem_usage (clo_scan_abstract.in.h:158-162)."""
-        return self._impl.vmem_usage(kernel_name, numel, self._options)
+    def localmem_usage(self, kernel_name: str, numel: int) -> int:
+        """On-chip bytes one program of a kernel holds (parity:
+        clo_scan_get_localmem_usage, clo_scan_abstract.in.h:158-162)."""
+        return self._impl.localmem_usage(kernel_name, numel, self.elem_dtype,
+                                         self.sum_dtype, self._options)
 
     # -- entry points --------------------------------------------------------
     def scan_with_device_data(self, x: jax.Array, *,
@@ -103,11 +104,12 @@ def scan_new(name: str = "blelloch",
     """Create a scanner by name (parity: clo_scan_new, clo_scan_abstract.c:74).
 
     Args:
-      name: implementation name ("blelloch" — 3-phase Pallas scan: XLA
-        block sums + tiny cumsum + one base-fed Pallas block-scan kernel,
-        mirroring the reference's 3-kernel structure; "xla" — pure-XLA
+      name: implementation name ("blelloch" — 3-phase scan: XLA block
+        sums + tiny cumsum + one base-fed Triton block-scan kernel,
+        mirroring the reference's 3-kernel structure; "xla" — XLA's
         cumsum).
-      options: reference-style option string or dict (e.g. "block_rows=256").
+      options: reference-style option string or dict ("block=4096",
+        "num_warps=4" for blelloch).
       elem_dtype: input element type (OpenCL-style name or dtype).
       sum_dtype: accumulator/output type; defaults to the widening rule
         (uint -> ulong etc., like clo_scan_bench's defaults).
@@ -116,66 +118,40 @@ def scan_new(name: str = "blelloch",
     return Scan(impl, elem_dtype, sum_dtype, parse_options(options))
 
 
-# --- blelloch: 3-phase base-fed Pallas scan ----------------------------------
+# --- blelloch: three phases, the third a Triton kernel ----------------------
 
 def _blelloch_make_fn(elem_dtype, sum_dtype, options):
-    block_rows = int(options.get("block_rows", 512))
-    interpret = pallas_interpret() or options.get("interpret") == "1"
+    block = int(options.get("block", kernels.BLOCK))
+    num_warps = int(options.get("num_warps", kernels.NUM_WARPS))
 
     def fn(x, exclusive):
         return kernels.scan_1d(x, sum_dtype=sum_dtype, exclusive=exclusive,
-                               block_rows=block_rows, interpret=interpret,
-                               single_pass=False)
+                               block=block, num_warps=num_warps)
     return fn
 
 
-def _blelloch_vmem(kernel_name, numel, options):
-    block_rows = int(options.get("block_rows", 512))
+def _blelloch_localmem(kernel_name, numel, elem_dtype, sum_dtype, options):
     if kernel_name != "block_scan_base_add":
-        return 0  # XLA phases: no Pallas VMEM blocks of our choosing
-    # in block + out block resident per grid step (bases ride scalar
-    # prefetch, not VMEM).
-    return block_rows * kernels.LANES * 2 * 8
+        return 0  # XLA phases: no blocks of our choosing
+    # one program holds its block of inputs and of running sums
+    block = min(int(options.get("block", kernels.BLOCK)), max(numel, 1))
+    return block * (jnp.dtype(elem_dtype).itemsize
+                    + jnp.dtype(kernels._acc_dtype(sum_dtype)).itemsize)
 
 
 # Introspection mirrors the reference's 3-kernel structure
 # (workgroupScan / workgroupSumsScan / addWorkgroupSums,
 # clo_scan_blelloch.cl:49-211): phases 1-2 are XLA here, phase 3 is the
-# Pallas kernel that fuses the block scan with the base add.
+# Triton kernel that fuses the block scan with the base add.
 scan_impls.register("blelloch")(lambda: ScanImplDef(
     name="blelloch",
     make_fn=_blelloch_make_fn,
     kernel_names=("block_sums", "block_sums_scan", "block_scan_base_add"),
-    vmem_usage=_blelloch_vmem,
+    localmem_usage=_blelloch_localmem,
 ))
 
 
-# --- lookback: the single-pass carry kernel ----------------------------------
-
-def _lookback_make_fn(elem_dtype, sum_dtype, options):
-    block_rows = int(options.get("block_rows", 512))
-    interpret = pallas_interpret() or options.get("interpret") == "1"
-
-    def fn(x, exclusive):
-        return kernels.scan_1d(x, sum_dtype=sum_dtype, exclusive=exclusive,
-                               block_rows=block_rows, interpret=interpret,
-                               single_pass=True)
-    return fn
-
-
-# The decoupled-lookback-style variant SURVEY §7 stage 3 names: ONE kernel,
-# per-block MXU scan + serial SMEM carry across sequential grid steps — 2
-# HBM sweeps instead of blelloch's 3. Integer sums only; float sums fall
-# back to the 3-phase structure inside scan_1d.
-scan_impls.register("lookback")(lambda: ScanImplDef(
-    name="lookback",
-    make_fn=_lookback_make_fn,
-    kernel_names=("carry_scan",),
-    vmem_usage=lambda k, n, o: int(o.get("block_rows", 512)) * 128 * 2 * 8,
-))
-
-
-# --- xla: jnp.cumsum (oracle / non-TPU fallback) ----------------------------
+# --- xla: jnp.cumsum (XLA's own scan; the oracle) ----------------------------
 
 def _xla_make_fn(elem_dtype, sum_dtype, options):
     @jax.jit
@@ -196,7 +172,7 @@ scan_impls.register("xla")(lambda: ScanImplDef(
     name="xla",
     make_fn=_xla_make_fn,
     kernel_names=("cumsum",),
-    vmem_usage=lambda k, n, o: 0,
+    localmem_usage=lambda k, n, e, s, o: 0,
 ))
 
 

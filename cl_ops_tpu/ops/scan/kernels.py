@@ -1,30 +1,20 @@
-"""Pallas TPU prefix-sum (scan) kernels.
+"""Blelloch prefix sum: three phases, the third a Pallas kernel via Triton.
 
-TPU-native redesign of the reference's Blelloch scan
-(`src/cl_ops/scan/clo_scan_blelloch.cl:49-211`). The shape of the solution
-ends up mirroring the reference's three phases — per-block scan, scan of
-block totals, base add — because a single-pass grid-carry kernel (tried
-first) serializes Mosaic's grid pipeline on the carry dependency and runs
-~8x slower. Here phases 1-2 are XLA (block sums + a tiny cumsum) and phase 3
-is one fully-pipelined Pallas kernel: block scan + precomputed base, fused
-where the reference needed a separate addWorkgroupSums launch.
+The reference's Blelloch scan is a GPU workgroup design
+(`src/cl_ops/scan/clo_scan_blelloch.cl:49-211`): a scan of each workgroup's
+block in local memory, a scan of the workgroup totals, and a uniform add of
+those totals back into every block. The same three phases here:
 
-In-block scans use the MXU. Narrow (32-bit-sum) path: values split into
-four 8-bit chunks, each lane-scanned exactly with one triangular bf16
-matmul (ints <= 255 are bf16-exact and the MXU accumulates in f32: dots
-of 128 such terms are exact), ripple-recombined mod 2^32, then ONE row
-prefix on the combined words — 4 single-pass matmuls where f32
-Precision.HIGHEST halves cost ~6 passes each (measured +27% on the
-single-pass kernel). Row totals scan directly on the (R,1) column with a
-sublane Hillis-Steele (see _row_prefix_of_totals on why not a reshape).
+  1. block sums — one XLA reduction over (n_blocks, BLOCK);
+  2. the exclusive scan of the n/BLOCK block sums — a tiny XLA cumsum;
+  3. one Triton program per block scans its BLOCK elements in registers
+     and adds its base: the reference's workgroupScan and addWorkgroupSums
+     fused into one pass that reads the input and writes the output once.
 
-64-bit sums (the reference's default uint->ulong widening,
-`clo_scan_bench.c:26-31`): Mosaic on v5e has no 64-bit registers, so the
-wide path emulates u64/i64 with two u32 limbs and explicit carries; it
-keeps 16-bit-half block scans — needing the carry per limb forces a
-block scan per chunk, and four row prefixes per limb measured slower
-than the extra MXU passes. The same kernels run under interpret mode on
-CPU so tests exercise the TPU code path.
+So the input is read twice and the output written once. Blocks carry
+nothing between them, so the grid runs in any order. Sums accumulate
+natively in the sum dtype (64-bit integers included); narrower integers
+accumulate in i32 and half floats in f32, then narrow on the store.
 """
 
 from __future__ import annotations
@@ -35,537 +25,95 @@ import logging
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from cl_ops_tpu.utils.bits import cdiv
+from cl_ops_tpu.utils.bits import cdiv, is_po2
+from cl_ops_tpu.utils.platform import pallas_mode
 
-LANES = 128
-# Wide (64-bit-sum) blocks must stay <= 2^15 elements so 16-bit-half cumsums
-# remain exact in i32 (32768 * 65535 < 2^31).
-MAX_WIDE_ROWS = 256
-
-# Plain int (not a jnp constant) so kernels don't capture tracers.
-_I32_MIN = -0x80000000
+BLOCK = 4096       # elements per Triton program (a power of two)
+NUM_WARPS = 4
 
 
-def _cumsum_axis(x, axis):
-    """Inclusive prefix sum along `axis` via Hillis-Steele log-shift adds.
-
-    Mosaic has no cumsum primitive, so the scan is log2(n) rounds of
-    roll-and-masked-add — the in-register analog of the reference's local-mem
-    up/down-sweep (`clo_scan_blelloch.cl:76-115`), but running on full VPU
-    vectors instead of a work-group tree.
-    """
-    n = x.shape[axis]
-    idx = jax.lax.broadcasted_iota(jnp.int32, x.shape, axis)
-    k = 1
-    while k < n:
-        # int32 shift: under x64 a python int would become an i64 operand,
-        # which tpu.dynamic_rotate rejects.
-        shifted = pltpu.roll(x, jnp.int32(k), axis)
-        x = x + jnp.where(idx >= k, shifted, jnp.zeros_like(x))
-        k *= 2
-    return x
+def _acc_dtype(sum_dtype):
+    """Dtype the block scan accumulates in for a given output dtype."""
+    dt = jnp.dtype(sum_dtype)
+    if dt.kind in "iu" and dt.itemsize < 4:
+        return jnp.dtype(jnp.int32)
+    if dt.kind == "f" and dt.itemsize < 4:
+        return jnp.dtype(jnp.float32)
+    return dt
 
 
-def _block_inclusive_scan(block_2d):
-    """Inclusive prefix sum of a (rows, LANES) block in row-major order."""
-    lane_scan = _cumsum_axis(block_2d, 1)
-    row_totals = lane_scan[:, LANES - 1:]
-    return lane_scan + _row_prefix_of_totals(row_totals)
-
-
-def _ult(x, y):
-    """Unsigned 32-bit x < y computed on i32 values (sign-flip trick)."""
-    return ((x ^ _I32_MIN) < (y ^ _I32_MIN)).astype(jnp.int32)
-
-
-def _lane_scan_8bit_mxu(p_i32):
-    """Exact inclusive lane scan of <=8-bit values via ONE bf16 MXU pass.
-
-    Integers 0..255 are bf16-exact (8 significand bits) and the MXU
-    accumulates in f32 (dot of 128 terms <= 32640 < 2^24, exact), so the
-    scan costs a single MXU pass — where the f32 triangular matmul at
-    Precision.HIGHEST costs ~6 passes in bf16 decomposition. The 32-bit
-    scans chunk into four 8-bit scans, 4 total MXU passes vs 12.
-    """
-    r_iota = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 0)
-    c_iota = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 1)
-    tri = (r_iota <= c_iota).astype(jnp.bfloat16)
-    return jnp.dot(p_i32.astype(jnp.bfloat16), tri,
-                   preferred_element_type=jnp.float32).astype(jnp.int32)
-
-
-def _chunk_scans_8bit(x_i32):
-    """Inclusive lane scans of the four 8-bit chunks of 32-bit values."""
-    return [_lane_scan_8bit_mxu((x_i32 >> (8 * c)) & 0xFF)
-            for c in range(4)]
-
-
-def _combine_chunks_mod32(s):
-    """(word mod 2^32, carry_out) from four 8-bit-chunk scans.
-
-    Chunk sums stay < 2^16, so the ripple t_{k+1} = S_{k+1} + (t_k >> 8)
-    never overflows i32; the bytes of t_k assemble the exact mod-2^32
-    word and t_3 >> 8 is the 64-bit carry.
-    """
-    t0 = s[0]
-    t1 = s[1] + (t0 >> 8)
-    t2 = s[2] + (t1 >> 8)
-    t3 = s[3] + (t2 >> 8)
-    word = ((t0 & 0xFF) | ((t1 & 0xFF) << 8)
-            | ((t2 & 0xFF) << 16) | ((t3 & 0xFF) << 24))
-    return word, t3 >> 8
-
-
-def _row_prefix_of_totals(row_totals):
-    """Exclusive scan over per-row totals (r,1) — sublane Hillis-Steele.
-
-    Adds wrap in i32 — exact for mod-2^32 semantics; callers needing true
-    magnitudes must bound r * max_total < 2^31. Measured on chip: the
-    direct log2(r)-round sublane scan on the (r,1) column beats the
-    "reshape to (r/128,128) and scan along lanes" variant ~1.5x — the
-    relayouts and sub-8-sublane intermediate shapes cost more than the
-    127/128 vreg waste the reshape was avoiding (bisect, r2 session).
-    """
-    return _cumsum_axis(row_totals, 0) - row_totals
-
-
-def _block_inclusive_scan_mod32(x_i32):
-    """Inclusive block scan, exact mod 2^32, for full 32-bit values.
-
-    Split into 8-bit chunks, MXU-scan each exactly along lanes in one
-    bf16 pass each, ripple-recombine mod 2^32, then add a wrapping row
-    prefix. No block-size bound — wrap is the semantics.
-    """
-    word, _ = _combine_chunks_mod32(_chunk_scans_8bit(x_i32))
-    row_totals = word[:, LANES - 1:]
-    return word + _row_prefix_of_totals(row_totals)
-
-
-# --- narrow path: sums fit a 32-bit (or native float) register ---------------
-
-def _scan_block_kernel(base_ref, x_ref, out_ref, *, exclusive: bool,
-                       compute_dtype, out_dtype):
-    """Per-block scan + precomputed base add (no cross-step dependency).
-
-    The reference's three-phase structure (workgroupScan -> sums scan ->
-    addWorkgroupSums, clo_scan_blelloch.cl:49-211) turns out to be right on
-    TPU too: a serial SMEM carry between grid steps defeats Mosaic's
-    pipelining, while a precomputed per-block base keeps every step
-    independent and the kernel streaming at HBM speed.
-    """
-    base = base_ref[pl.program_id(0)]
-    if jnp.dtype(compute_dtype).kind in "iu":
-        # Everything in i32: wrapping adds equal mod-2^32 semantics, and
-        # neither unsigned nor 64-bit types have to survive Mosaic.
-        x = x_ref[...]
-        if jnp.dtype(x.dtype).kind == "u":
-            xi = jax.lax.bitcast_convert_type(
-                x.astype(jnp.uint32), jnp.int32)
-        else:
-            xi = x.astype(jnp.int32)
-        incl = _block_inclusive_scan_mod32(xi)
-        res = incl + base - xi if exclusive else incl + base
-        if jnp.dtype(out_dtype).kind == "u":
-            out_ref[...] = jax.lax.bitcast_convert_type(
-                res, jnp.uint32).astype(out_dtype)
-        else:
-            out_ref[...] = res.astype(out_dtype)
-    else:
-        x = x_ref[...].astype(compute_dtype)
-        incl = _block_inclusive_scan(x)
-        res = incl + base - x if exclusive else incl + base
-        out_ref[...] = res.astype(out_dtype)
-
-
-def _scan_carry_kernel(x_ref, out_ref, carry_ref, *, exclusive: bool):
-    """Single-pass scan: per-block MXU scan + a serial SMEM carry.
-
-    2 HBM sweeps (read input, write output) instead of the 3 the base-fed
-    design pays (VERDICT r1 item 3; structural referent
-    `clo_scan_blelloch.cl:49-211` — this is its single-kernel collapse).
-    The carry dependency only serializes the cheap base-add tail of each
-    grid step; Mosaic still overlaps the block DMAs. Pure i32 in/out —
-    dtype conversions happen host-side (lax.reduce has no Pallas TPU
-    lowering and jnp.sum promotes under x64, so the total comes from the
-    scan tail, the pattern the wide kernel validated on hardware).
-    """
-    b = pl.program_id(0)
-
-    @pl.when(b == 0)
-    def _init():
-        carry_ref[0] = jnp.int32(0)
-
-    xi = x_ref[...]
-    incl = _block_inclusive_scan_mod32(xi)
-    base = carry_ref[0]
-    res = incl + base - xi if exclusive else incl + base
-    carry_ref[0] = base + incl[xi.shape[0] - 1, LANES - 1]
-    out_ref[...] = res
-
-
-def _wide_scan_carry_kernel(lo_ref, hi_ref, out_lo_ref, out_hi_ref,
-                            carry_ref, *, exclusive: bool):
-    """Single-pass 64-bit scan: (lo, hi) i32 limbs + a 2-scalar SMEM carry."""
-    b = pl.program_id(0)
-
-    @pl.when(b == 0)
-    def _init():
-        carry_ref[0] = jnp.int32(0)
-        carry_ref[1] = jnp.int32(0)
-
-    xlo = lo_ref[...]
-    xhi = hi_ref[...]
-    word_lo, carry_lo = _scan_u32_mod(xlo)
-    word_hi, _ = _scan_u32_mod(xhi)
-    word_hi = word_hi + carry_lo
-    base_lo = carry_ref[0]
-    base_hi = carry_ref[1]
-    incl_lo = word_lo + base_lo
-    incl_hi = word_hi + base_hi + _ult(incl_lo, base_lo)
-    # Block totals from the scan tail (hardware-validated pattern; in-
-    # kernel reductions either promote under x64 or have no TPU lowering).
-    r = xlo.shape[0]
-    carry_ref[0] = incl_lo[r - 1, LANES - 1]
-    carry_ref[1] = incl_hi[r - 1, LANES - 1]
+def _scan_block_kernel(base_ref, x_ref, out_ref, *, n: int, block: int,
+                       exclusive: bool, acc_dtype):
+    """Phase 3: scan one block in registers and add its base."""
+    pid = pl.program_id(0)
+    start = pid * block
+    mask = start + jnp.arange(block, dtype=jnp.int32) < n
+    x = plgpu.load(x_ref.at[pl.ds(start, block)], mask=mask,
+                   other=0).astype(acc_dtype)
+    acc = jax.lax.cumsum(x, axis=0) + base_ref[pid]
     if exclusive:
-        out_lo = incl_lo - xlo
-        out_hi = incl_hi - xhi - _ult(incl_lo, xlo)
-    else:
-        out_lo, out_hi = incl_lo, incl_hi
-    out_lo_ref[...] = out_lo
-    out_hi_ref[...] = out_hi
+        acc = acc - x
+    plgpu.store(out_ref.at[pl.ds(start, block)], acc.astype(out_ref.dtype),
+                mask=mask)
 
 
-def _wide_scan_block_kernel(base_lo_ref, base_hi_ref, lo_ref, hi_ref,
-                            out_lo_ref, out_hi_ref, *, exclusive: bool):
-    """Base-fed per-block scan of 64-bit values as (lo, hi) i32 limbs."""
-    xlo = lo_ref[...]
-    xhi = hi_ref[...]
-    word_lo, carry_lo = _scan_u32_mod(xlo)
-    word_hi, _ = _scan_u32_mod(xhi)
-    word_hi = word_hi + carry_lo
-
-    b = pl.program_id(0)
-    base_lo = base_lo_ref[b]
-    base_hi = base_hi_ref[b]
-    incl_lo = word_lo + base_lo
-    incl_hi = word_hi + base_hi + _ult(incl_lo, base_lo)
-    if exclusive:
-        out_lo = incl_lo - xlo
-        out_hi = incl_hi - xhi - _ult(incl_lo, xlo)
-    else:
-        out_lo, out_hi = incl_lo, incl_hi
-    out_lo_ref[...] = out_lo
-    out_hi_ref[...] = out_hi
-
-
-
-# --- wide path: 64-bit sums as two u32 limbs ---------------------------------
-
-def _lane_scan_16bit_mxu(p_i32):
-    """Exact inclusive lane scan of <=16-bit values via one f32 MXU matmul.
-
-    Precision.HIGHEST: the default lets the MXU demote f32 multiplies to
-    bf16 (8-bit mantissa), silently corrupting 16-bit operands.
-    """
-    r_iota = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 0)
-    c_iota = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 1)
-    tri = (r_iota <= c_iota).astype(jnp.float32)
-    return jnp.dot(p_i32.astype(jnp.float32), tri,
-                   precision=jax.lax.Precision.HIGHEST,
-                   preferred_element_type=jnp.float32).astype(jnp.int32)
-
-
-def _block_inclusive_scan_exact16(p_i32):
-    """Exact inclusive block scan for <=16-bit inputs (MXU lane pass).
-
-    Bound: block_elems * 65535 < 2^31 (callers keep blocks <= 2^15 elems).
-    """
-    lane_scan = _lane_scan_16bit_mxu(p_i32)
-    row_totals = lane_scan[:, LANES - 1:]
-    return lane_scan + _row_prefix_of_totals(row_totals)
-
-
-def _scan_u32_mod(x_i32):
-    """Exact-mod-2^32 inclusive block scan of u32 values held in i32 lanes.
-
-    Splits into 16-bit halves (a = low, b = high), scans each exactly in
-    i32, recombines: sum = (a & 0xffff) | ((a>>16 + b) << 16) with
-    carry-out (a>>16 + b) >> 16. The 8-bit-chunk decomposition (narrow
-    path) was measured SLOWER here: four block scans per limb double the
-    row-prefix/relayout work, which dominates over the saved MXU passes
-    (1.16 vs 1.94 GV/s on chip). Returns (sum mod 2^32 as i32, carry_out).
-    """
-    a = _block_inclusive_scan_exact16(x_i32 & 0xFFFF)
-    b = _block_inclusive_scan_exact16((x_i32 >> 16) & 0xFFFF)
-    t = (a >> 16) + b
-    word = (a & 0xFFFF) | ((t & 0xFFFF) << 16)
-    carry = t >> 16
-    return word, carry
-
-
-def _to_limbs(x):
-    """Split ints to (lo, hi) u32-bit-pattern limbs held as i32 (two's compl)."""
-    dt = jnp.dtype(x.dtype)
-    if dt.itemsize == 8:
-        u = jax.lax.bitcast_convert_type(x, jnp.uint64)
-        lo = (u & jnp.uint64(0xFFFFFFFF)).astype(jnp.uint32)
-        hi = (u >> jnp.uint64(32)).astype(jnp.uint32)
-        return (jax.lax.bitcast_convert_type(lo, jnp.int32),
-                jax.lax.bitcast_convert_type(hi, jnp.int32))
-    if dt.kind == "u":
-        lo = jax.lax.bitcast_convert_type(x.astype(jnp.uint32), jnp.int32)
-        return lo, jnp.zeros_like(lo)
-    lo = x.astype(jnp.int32)
-    hi = lo >> 31  # sign extension: 0 or -1
-    return lo, hi
-
-
-def _from_limbs(lo_i32, hi_i32, sum_dtype):
-    u = (jax.lax.bitcast_convert_type(lo_i32, jnp.uint32).astype(jnp.uint64)
-         | (jax.lax.bitcast_convert_type(hi_i32, jnp.uint32).astype(jnp.uint64)
-            << jnp.uint64(32)))
-    if jnp.dtype(sum_dtype) == jnp.int64:
-        return jax.lax.bitcast_convert_type(u, jnp.int64)
-    return u.astype(sum_dtype)
-
-
-def _row_block_index_map(i, *prefetch_refs):
-    # (i, i * 0) not (i, 0): under x64 a literal 0 traces as i64, which the
-    # Mosaic index-map lowering rejects. Scalar-prefetch grid specs pass the
-    # prefetch refs as extra index-map args; they are unused here.
-    return (i, i * 0)
-
-
-def _pad_2d(x, block_rows, pad_value=0):
+def block_bases(x, acc_dtype, block: int):
+    """Phases 1-2: each block's exclusive base, in acc_dtype."""
     n = x.shape[0]
-    block_elems = block_rows * LANES
-    n_blocks = max(cdiv(n, block_elems), 1)
-    padded = n_blocks * block_elems
-    if padded != n:
-        x = jnp.pad(x, (0, padded - n), constant_values=pad_value)
-    return x.reshape(n_blocks * block_rows, LANES), n_blocks
-
-
-def scan_traffic_bytes(n: int, elem_dtype, sum_dtype,
-                       block_rows: int = 512,
-                       single_pass: bool = False) -> int:
-    """Bytes-moved model of scan_1d (for bench roofline accounting).
-
-    3-phase: the XLA block-sum pass reads the input once, the Pallas pass
-    reads it again and writes the output. Single-pass: one read + one
-    write. The wide (64-bit-sum) path additionally pays the limb
-    split/recombine copies. Keep in lockstep with scan_1d.
-    """
-    es = jnp.dtype(elem_dtype).itemsize
-    ss = jnp.dtype(sum_dtype).itemsize
-    block_elems = block_rows * LANES
-    if ss == 8 and jnp.dtype(sum_dtype).kind in "iu":
-        bw = min(block_rows, MAX_WIDE_ROWS) * LANES
-        p = cdiv(n, bw) * bw
-        # split to limbs (r n*es, w 8p) + [3-phase: sums r 8p] +
-        # kernel (r 8p, w 8p) + recombine (r 8p, w 8n)
-        sweeps = 4 if single_pass else 5
-        return n * es + sweeps * 8 * p + 8 * n
-    p = cdiv(n, block_elems) * block_elems
-    pad = (n * es + p * 4) if p != n else 0
-    sums = 0 if single_pass else 4 * p
-    return pad + sums + 4 * p + ss * p
+    n_blocks = cdiv(n, block)
+    xp = jnp.pad(x, (0, n_blocks * block - n)).astype(acc_dtype)
+    sums = jnp.sum(xp.reshape(n_blocks, block), axis=1, dtype=acc_dtype)
+    return jnp.cumsum(sums, dtype=acc_dtype) - sums
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("sum_dtype", "exclusive", "block_rows", "interpret",
-                     "single_pass"))
-def scan_1d(x, *, sum_dtype, exclusive=True, block_rows=512, interpret=False,
-            single_pass=False):
-    """Prefix sum over a 1-D array.
+    static_argnames=("sum_dtype", "exclusive", "block", "num_warps"))
+def scan_1d(x, *, sum_dtype, exclusive=True, block=BLOCK,
+            num_warps=NUM_WARPS):
+    """Prefix sum over a 1-D array of any length.
 
     Args:
-      x: 1-D input of any length (padded internally to a block multiple;
-        the reference instead restricts sizes / pads with nlpo2).
-      sum_dtype: accumulator/output dtype (the ref's CLO_SCAN_SUM_TYPE,
-        clo_scan_abstract.c:122-125). 64-bit integer sums use the two-limb
-        emulation path; float64 falls back to an XLA cumsum (no f64 on the
-        TPU VPU).
+      x: 1-D input.
+      sum_dtype: output dtype (the ref's CLO_SCAN_SUM_TYPE,
+        `clo_scan_abstract.c:122-125`). Integer sums wrap modulo their
+        width, like the reference's OpenCL integer adds.
       exclusive: exclusive (Blelloch) semantics like the reference; False
         gives inclusive.
-      block_rows: sublane rows per grid block; block covers block_rows*128
-        elements of VMEM per step.
-      single_pass: integer sums run the single-kernel carry scan (2 HBM
-        sweeps — read input, write output; the "lookback" registry impl);
-        False (default) keeps the 3-phase base-fed design (block sums in
-        XLA + one Pallas pass). Floats always use the 3-phase path. Both
-        the narrow (32-bit-sum) and wide (64-bit-sum) single-pass kernels
-        are hardware-validated on v5e. (An early narrow variant hung the
-        Mosaic compile; bisected to the pl.when + dimension_semantics=
-        ("arbitrary",) combination — the shipped kernels omit "arbitrary"
-        and rely on Mosaic's default sequential grid order for the serial
-        SMEM carry; see the inline note at the narrow carry kernel.)
+      block: elements per Triton program, a power of two.
+      num_warps: warps per Triton program.
     """
+    if not is_po2(block):
+        raise ValueError(f"block must be a power of two, got {block}")
     n = x.shape[0]
-    sum_dtype = jnp.dtype(sum_dtype)
-    # strategy trace (g_debug parity: blelloch worksize dumps,
-    # clo_scan_blelloch.c:160-163); fires once per compile
+    # uint64 is uint32 when jax_enable_x64 is off
+    sum_dtype = jax.dtypes.canonicalize_dtype(sum_dtype)
+    if n == 0:
+        return jnp.zeros((0,), sum_dtype)
+    acc_dtype = _acc_dtype(sum_dtype)
+    mode = pallas_mode()
     logging.getLogger("cl_ops_tpu.scan").debug(
-        "scan_1d: n=%d elem=%s sum=%s block_rows=%d single_pass=%s "
-        "interpret=%s", n, x.dtype, sum_dtype, block_rows, single_pass,
-        interpret)
-
-    if sum_dtype.kind in "iu" and sum_dtype.itemsize == 8:
-        br = min(block_rows, MAX_WIDE_ROWS)
-        if single_pass:
-            return _scan_1d_wide_carry(x, sum_dtype, exclusive, br,
-                                       interpret)[:n]
-        return _scan_1d_wide(x, sum_dtype, exclusive, br, interpret)[:n]
-
-    if sum_dtype == jnp.float64:
-        acc = jnp.cumsum(x.astype(sum_dtype))
-        return acc - x.astype(sum_dtype) if exclusive else acc
-
-    # Narrow ints accumulate in i32 (wrapping matches truncation); 32-bit and
-    # float types accumulate natively.
-    if sum_dtype.kind in "iu" and sum_dtype.itemsize < 4:
-        compute_dtype = jnp.dtype(jnp.int32)
-    else:
-        compute_dtype = sum_dtype
-
-    if single_pass and compute_dtype.kind in "iu":
-        return _scan_1d_carry(x, sum_dtype, exclusive, block_rows, interpret)
-
-    x2, n_blocks = _pad_2d(x, block_rows)
-    # Phase 1+2 (XLA): per-block sums, then a tiny exclusive scan of them —
-    # bases precomputed so the Pallas pass has no cross-step dependency.
-    if compute_dtype.kind in "iu":
-        xi = x2.astype(jnp.uint32) if compute_dtype.kind == "u" or \
-            jnp.dtype(x2.dtype).kind == "u" else x2.astype(jnp.int32)
-        xi = (jax.lax.bitcast_convert_type(xi, jnp.int32)
-              if xi.dtype == jnp.uint32 else xi)
-        # dtype pinned: jnp.sum promotes i32 to i64 under x64
-        sums = jnp.sum(xi.reshape(n_blocks, block_rows * LANES), axis=1,
-                       dtype=jnp.int32)
-    else:
-        sums = jnp.sum(x2.reshape(n_blocks, block_rows * LANES)
-                       .astype(compute_dtype), axis=1)
-    base = jnp.cumsum(sums) - sums  # (n_blocks,) scalar-prefetch arg
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_blocks,),
-        in_specs=[pl.BlockSpec((block_rows, LANES), _row_block_index_map,
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((block_rows, LANES), _row_block_index_map,
-                               memory_space=pltpu.VMEM),
-    )
-    out = pl.pallas_call(
-        functools.partial(_scan_block_kernel, exclusive=exclusive,
-                          compute_dtype=compute_dtype, out_dtype=sum_dtype),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_blocks * block_rows, LANES),
-                                       sum_dtype),
-        interpret=interpret,
-    )(base, x2)
-    return out.reshape(-1)[:n]
+        "scan_1d: n=%d elem=%s sum=%s block=%d mode=%s", n, x.dtype,
+        sum_dtype, block, mode)
+    base = block_bases(x, acc_dtype, block)
+    return pl.pallas_call(
+        functools.partial(_scan_block_kernel, n=n, block=block,
+                          exclusive=exclusive, acc_dtype=acc_dtype),
+        grid=(cdiv(n, block),),
+        out_shape=jax.ShapeDtypeStruct((n,), sum_dtype),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=mode == "interpret",
+        name="blelloch_block_scan",
+    )(base, x)
 
 
-def _scan_1d_carry(x, sum_dtype, exclusive, block_rows, interpret):
-    """Single-pass integer scan: one kernel, SMEM carry across grid steps.
-
-    The kernel is pure i32; dtype handling (unsigned bitcasts, narrow
-    widening) happens host-side where XLA fuses it into the pad/slice.
-    """
-    n = x.shape[0]
-    if jnp.dtype(x.dtype).kind == "u":
-        xi = jax.lax.bitcast_convert_type(x.astype(jnp.uint32), jnp.int32)
-    else:
-        xi = x.astype(jnp.int32)
-    x2, n_blocks = _pad_2d(xi, block_rows)
-    spec = pl.BlockSpec((block_rows, LANES), _row_block_index_map,
-                        memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        functools.partial(_scan_carry_kernel, exclusive=exclusive),
-        grid=(n_blocks,),
-        in_specs=[spec],
-        out_specs=spec,
-        out_shape=jax.ShapeDtypeStruct((n_blocks * block_rows, LANES),
-                                       jnp.int32),
-        scratch_shapes=[pltpu.SMEM((1,), jnp.int32)],
-        # No dimension_semantics: ("arbitrary",) hangs the Mosaic compile
-        # of this kernel on v5e (bisected — variant C with the default
-        # semantics compiles and runs correctly). Grid steps execute in
-        # order on the single v5e core, preserving the serial carry.
-        interpret=interpret,
-    )(x2)
-    res = out.reshape(-1)[:n]
-    if jnp.dtype(sum_dtype).kind == "u":
-        return jax.lax.bitcast_convert_type(res, jnp.uint32).astype(
-            sum_dtype)
-    return res.astype(sum_dtype)
-
-
-def _scan_1d_wide_carry(x, sum_dtype, exclusive, block_rows, interpret):
-    """Single-pass 64-bit-sum scan on (lo, hi) limbs + 2-scalar SMEM carry."""
-    lo, hi = _to_limbs(x)
-    lo2, n_blocks = _pad_2d(lo, block_rows)
-    hi2, _ = _pad_2d(hi, block_rows)
-    spec = pl.BlockSpec((block_rows, LANES), _row_block_index_map,
-                        memory_space=pltpu.VMEM)
-    out_lo, out_hi = pl.pallas_call(
-        functools.partial(_wide_scan_carry_kernel, exclusive=exclusive),
-        grid=(n_blocks,),
-        in_specs=[spec, spec],
-        out_specs=(spec, spec),
-        out_shape=(
-            jax.ShapeDtypeStruct((n_blocks * block_rows, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((n_blocks * block_rows, LANES), jnp.int32),
-        ),
-        scratch_shapes=[pltpu.SMEM((2,), jnp.int32)],
-        # NOTE: the two carry kernels pin OPPOSITE dimension semantics —
-        # each to the configuration its Mosaic compile tolerates (bisected
-        # on chip): the narrow kernel hangs WITH ("arbitrary",), this wide
-        # kernel hangs WITHOUT it. Both execute grid steps in order on the
-        # single v5e core either way, so the serial carry is correct.
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        interpret=interpret,
-    )(lo2, hi2)
-    return _from_limbs(out_lo.reshape(-1), out_hi.reshape(-1), sum_dtype)
-
-
-def _scan_1d_wide(x, sum_dtype, exclusive, block_rows, interpret):
-    lo, hi = _to_limbs(x)
-    lo2, n_blocks = _pad_2d(lo, block_rows)
-    hi2, _ = _pad_2d(hi, block_rows)
-    # Per-block u64 sums + exclusive scan in XLA (u64 is fine outside
-    # Mosaic); bases split back into i32 limbs for the kernel.
-    usum = jnp.sum(
-        jax.lax.bitcast_convert_type(lo2, jnp.uint32)
-        .reshape(n_blocks, block_rows * LANES).astype(jnp.uint64), axis=1)
-    usum = usum + (jnp.sum(
-        jax.lax.bitcast_convert_type(hi2, jnp.uint32)
-        .reshape(n_blocks, block_rows * LANES).astype(jnp.uint64), axis=1)
-        << jnp.uint64(32))
-    base64 = jnp.cumsum(usum) - usum
-    base_lo = jax.lax.bitcast_convert_type(
-        (base64 & jnp.uint64(0xFFFFFFFF)).astype(jnp.uint32), jnp.int32)
-    base_hi = jax.lax.bitcast_convert_type(
-        (base64 >> jnp.uint64(32)).astype(jnp.uint32), jnp.int32)
-    spec = pl.BlockSpec((block_rows, LANES), _row_block_index_map,
-                        memory_space=pltpu.VMEM)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_blocks,),
-        in_specs=[spec, spec],
-        out_specs=(spec, spec),
-    )
-    out_lo, out_hi = pl.pallas_call(
-        functools.partial(_wide_scan_block_kernel, exclusive=exclusive),
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((n_blocks * block_rows, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((n_blocks * block_rows, LANES), jnp.int32),
-        ),
-        interpret=interpret,
-    )(base_lo, base_hi, lo2, hi2)
-    return _from_limbs(out_lo.reshape(-1), out_hi.reshape(-1), sum_dtype)
+def scan_least_bytes(n: int, elem_dtype, sum_dtype) -> int:
+    """The least bytes any scan of n elements moves: the input read once,
+    the output written once (bench/roofline.py's `bytes_moved`). scan_1d
+    itself reads the input twice, once for the block sums."""
+    return n * (jnp.dtype(elem_dtype).itemsize +
+                jnp.dtype(sum_dtype).itemsize)

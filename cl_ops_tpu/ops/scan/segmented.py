@@ -3,30 +3,18 @@
 The reference ships only the unsegmented Blelloch scan
 (`src/cl_ops/scan/clo_scan_blelloch.cl:49-211`); segmented scan is its
 classic companion operator (the primitive Blelloch's scan model builds
-group-wise aggregation from) and what the north-star query layer needs for
-windowed running aggregates: cumulative sums per group, row numbering,
-ranking (`ops/exec/window.py` composes those from this kernel exactly the
-way satradix composes the plain scan, `clo_sort_satradix.c:296-300`).
+group-wise aggregation from) and what the query layer needs for windowed
+running aggregates: cumulative sums per group, row numbering, ranking
+(`ops/exec/window.py` composes those from it the way satradix composes the
+plain scan, `clo_sort_satradix.c:296-300`).
 
-TPU design. For any associative op (+) with identity e, the pair operator
+Plain XLA. Integer add: the global prefix sum minus the prefix sum at each
+run's start (wrapping subtraction keeps integer sums exact mod 2^width).
+Float add, min and max: `lax.associative_scan` of the pair operator
 
     (v1, f1) (x) (v2, f2) = (f2 ? v2 : v1 (+) v2,  f1 | f2)
 
-is associative, so the scan keeps the single-pass structure of the carry
-scan in kernels.py: per-block segmented Hillis-Steele on the VPU (roll +
-masked combine along lanes, then across sublanes), with a value-since-flag
-SMEM carry across sequential grid steps — 2 HBM sweeps total. The MXU
-triangular-matmul trick of the plain scan does NOT apply here: a segmented
-scan's "matrix" is data-dependent (one triangular block per segment), so
-in-block work is log2 rounds of roll/select per axis. That is more VPU work
-per element than the plain scan's 4 MXU passes, but each block still
-finishes far inside its HBM window at 512-row blocks.
-
-Dtype rules mirror scan_1d: <=32-bit integer sums run exact mod 2^32 in an
-i32 kernel (min/max compare in true i32/monotone-u32 order); f32 runs
-natively; 64-bit integer and f64 accumulators fall back to an XLA
-formulation (cumsum-gather for add, associative_scan of the pair operator
-for min/max) because Mosaic on v5e has no 64-bit registers.
+which is associative for any associative (+).
 """
 
 from __future__ import annotations
@@ -35,10 +23,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from cl_ops_tpu.ops.scan.kernels import LANES, _pad_2d
 
 __all__ = ["segmented_scan_1d", "flags_from_segment_ids"]
 
@@ -60,106 +44,6 @@ def _identity_scalar(op: str, dtype):
     return jnp.asarray(info.max if op == "min" else info.min, dtype)
 
 
-def _seg_pair_scan(v, fa, axis, op: str):
-    """Inclusive segmented Hillis-Steele scan of (value, flag) along axis.
-
-    Per round d: v[i] = op(v[i], v[i-d]) unless a flag already covers
-    (i-d, i]; fa[i] |= fa[i-d]. Shifts use pltpu.roll with i32 amounts
-    (python ints become i64 operands under x64, which tpu.dynamic_rotate
-    rejects). Masked-out contributions select the op identity.
-    """
-    n = v.shape[axis]
-    combine = _OPS[op]
-    ident = jnp.full_like(v, _identity_scalar(op, v.dtype))
-    idx = jax.lax.broadcasted_iota(jnp.int32, v.shape, axis)
-    k = 1
-    while k < n:
-        vk = pltpu.roll(v, jnp.int32(k), axis)
-        fk = pltpu.roll(fa, jnp.int32(k), axis)
-        live = (idx >= k) & (fa == 0)
-        v = combine(v, jnp.where(live, vk, ident))
-        fa = fa | jnp.where(idx >= k, fk, jnp.zeros_like(fa))
-        k *= 2
-    return v, fa
-
-
-def _seg_block_scan(v, fa, op: str):
-    """Inclusive segmented scan of a (rows, LANES) block in row-major order.
-
-    Returns (scanned block, lane flag-accum, no-prior-flag-in-block mask,
-    T, G) where T/G are the inclusive cross-row pair scan of the row tails:
-    T[r] = value-since-last-flag through row r, G[r] = any-flag through
-    row r. T[-1]/G[-1] are the block's carry summary.
-    """
-    combine = _OPS[op]
-    v, fa = _seg_pair_scan(v, fa, 1, op)
-    t = v[:, LANES - 1:]          # (R, 1) row tail: value since last flag
-    g = fa[:, LANES - 1:]         # (R, 1) row has-flag
-    T, G = _seg_pair_scan(t, g, 0, op)
-    ident1 = jnp.full_like(T, _identity_scalar(op, v.dtype))
-    ridx = jax.lax.broadcasted_iota(jnp.int32, T.shape, 0)
-    base = jnp.where(ridx >= 1, pltpu.roll(T, jnp.int32(1), 0), ident1)
-    gprev = jnp.where(ridx >= 1, pltpu.roll(G, jnp.int32(1), 0),
-                      jnp.zeros_like(G))
-    nofl = fa == 0
-    ident = jnp.full_like(v, _identity_scalar(op, v.dtype))
-    v = combine(v, jnp.where(nofl, base, ident))  # (R,1) bcast over lanes
-    noprior = nofl & (gprev == 0)
-    return v, fa, noprior, T, G
-
-
-def _seg_carry_kernel(x_ref, f_ref, out_ref, cval_ref, *, op: str,
-                      exclusive: bool):
-    """Single-pass segmented scan: block pair-scan + value-since-flag carry.
-
-    Mirrors _scan_carry_kernel's structure (kernels.py): default grid
-    semantics keep steps sequential on the single v5e core, so the serial
-    carry is correct; the carry only gates the cheap combine tail while
-    block DMAs still overlap. The pair operator's flag component never
-    leaves a block (the carried value is already since-last-flag), so the
-    carry is one scalar.
-    """
-    b = pl.program_id(0)
-
-    @pl.when(b == 0)
-    def _init():
-        cval_ref[0] = _identity_scalar(op, cval_ref.dtype)
-
-    xi = x_ref[...]
-    fi = f_ref[...]
-    v, _fa, noprior, T, G = _seg_block_scan(xi, fi, op)
-    cval = cval_ref[0]
-    ident = jnp.full_like(v, _identity_scalar(op, v.dtype))
-    res = _OPS[op](v, jnp.where(noprior, cval, ident))
-    r = xi.shape[0]
-    tail_v = T[r - 1, 0]
-    tail_g = G[r - 1, 0]
-    # Pair-operator carry update: a flag inside the block restarts the run.
-    cval_ref[0] = jnp.where(tail_g > 0, tail_v, _OPS[op](cval, tail_v))
-    if exclusive:
-        # add only — min/max exclusives shift host-side (no inverse op)
-        res = res - xi
-    out_ref[...] = res
-
-
-def _seg_scan_pallas(x2, f2, n_blocks, block_rows, value_dtype, op,
-                     exclusive, interpret):
-    spec = pl.BlockSpec((block_rows, LANES),
-                        lambda i: (i, i * 0),  # literal 0 traces as i64
-                        memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        functools.partial(_seg_carry_kernel, op=op,
-                          exclusive=exclusive),
-        grid=(n_blocks,),
-        in_specs=[spec, spec],
-        out_specs=spec,
-        out_shape=jax.ShapeDtypeStruct((n_blocks * block_rows, LANES),
-                                       value_dtype),
-        scratch_shapes=[pltpu.SMEM((1,), value_dtype)],
-        interpret=interpret,
-    )(x2, f2)
-
-
 def _shift_exclusive(incl, x, flags, op: str, acc_dtype):
     """Exclusive from inclusive: identity at run starts, prev value else."""
     if op == "add":
@@ -169,17 +53,14 @@ def _shift_exclusive(incl, x, flags, op: str, acc_dtype):
     return jnp.where(flags > 0, ident, prev)
 
 
-def _segmented_scan_xla(x, flags, acc_dtype, op, exclusive):
-    """XLA fallback.
-
-    add: plain cumsum minus the cumsum gathered at each run's start
-    (wrapping subtraction keeps integer sums exact mod 2^width); i32 index
-    cummax + gather, n < 2^31. min/max: lax.associative_scan of the pair
-    operator (log n XLA passes — fallback/oracle quality, not a kernel).
-    """
+def _segmented_scan(x, flags, acc_dtype, op, exclusive):
+    """Integer add: cumsum minus the cumsum gathered at each run's start
+    (i32 index cummax + gather, n < 2^31). Float add, min and max:
+    associative_scan of the pair operator (a float difference of global
+    sums would cancel)."""
     xs = x.astype(acc_dtype)
-    if op == "add":
-        incl = jnp.cumsum(xs)
+    if op == "add" and jnp.dtype(acc_dtype).kind in "iu":
+        incl = jnp.cumsum(xs, dtype=acc_dtype)
         n = x.shape[0]
         iota = jax.lax.iota(jnp.int32, n)
         start = jax.lax.cummax(jnp.where(flags > 0, iota, jnp.int32(0)),
@@ -214,81 +95,28 @@ def flags_from_segment_ids(ids):
     return jnp.concatenate([head, rest])
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("sum_dtype", "op", "exclusive", "block_rows",
-                     "interpret", "use_pallas"))
-def segmented_scan_1d(x, flags, *, sum_dtype=None, op="add", exclusive=True,
-                      block_rows=512, interpret=False, use_pallas=True):
+@functools.partial(jax.jit, static_argnames=("sum_dtype", "op", "exclusive"))
+def segmented_scan_1d(x, flags, *, sum_dtype=None, op="add", exclusive=True):
     """Per-segment running sum/min/max over a 1-D array.
 
     Args:
-      x: 1-D values, any length (padded internally like scan_1d).
+      x: 1-D values, any length.
       flags: 1-D i32/bool, same length; nonzero marks a segment START (the
         scan restarts at that element). Position 0 implicitly starts a
         segment whether or not flagged. Build from segment ids with
         flags_from_segment_ids.
       sum_dtype: accumulator/output dtype; defaults to x.dtype (per-segment
-        runs rarely need the widening the global scan defaults to — pass
-        the widened type explicitly to opt in, which routes 64-bit
-        accumulators to the XLA path).
+        runs rarely need the widening the global scan defaults to).
       op: "add" (default), "min", or "max".
       exclusive: exclusive semantics (op identity at each segment start)
         like the reference's Blelloch default; False gives inclusive.
-      block_rows: sublane rows per grid block (block_rows*128 elements).
-      use_pallas: False forces the XLA formulation (oracle / fallback).
     """
     if op not in _OPS:
         raise ValueError(f"unknown op {op!r}; known: {tuple(_OPS)}")
-    n = x.shape[0]
     sum_dtype = jnp.dtype(sum_dtype if sum_dtype is not None else x.dtype)
     flags = jnp.asarray(flags)
     if flags.shape != x.shape:
         raise ValueError(
             f"flags shape {flags.shape} != values shape {x.shape}")
     fi = (flags != 0).astype(jnp.int32)
-
-    wide_int = sum_dtype.kind in "iu" and sum_dtype.itemsize == 8
-    if not use_pallas or wide_int or sum_dtype == jnp.float64:
-        return _segmented_scan_xla(x, fi, sum_dtype, op, exclusive)
-
-    if sum_dtype.kind in "iu":
-        # add: exact mod 2^32 in i32 (wrapping adds == truncating
-        # semantics). min/max on u32: flip the sign bit so signed i32
-        # compare matches unsigned order (psort's normalization trick).
-        if jnp.dtype(x.dtype).kind == "u":
-            xi = jax.lax.bitcast_convert_type(x.astype(jnp.uint32),
-                                              jnp.int32)
-            if op != "add":
-                xi = xi ^ jnp.int32(-0x80000000)
-        else:
-            xi = x.astype(jnp.int32)
-        value_dtype = jnp.dtype(jnp.int32)
-    elif sum_dtype == jnp.float32:
-        xi = x.astype(jnp.float32)
-        value_dtype = jnp.dtype(jnp.float32)
-    else:
-        raise ValueError(f"unsupported sum dtype {sum_dtype}")
-
-    from cl_ops_tpu.utils.platform import pallas_interpret
-    interpret = interpret or pallas_interpret()
-    x2, n_blocks = _pad_2d(xi, block_rows)
-    f2, _ = _pad_2d(fi, block_rows)
-    kernel_exclusive = exclusive and op == "add"
-    out = _seg_scan_pallas(x2, f2, n_blocks, block_rows, value_dtype, op,
-                           kernel_exclusive, interpret)
-    res = out.reshape(-1)[:n]
-    if op != "add" and jnp.dtype(sum_dtype).kind == "u":
-        res = res ^ jnp.int32(-0x80000000)
-    if exclusive and op != "add":
-        # identity/prev shift computed on the DECODED values so unsigned
-        # identities (e.g. u32 max) survive the sign-flip round trip
-        if sum_dtype.kind == "u":
-            dec = jax.lax.bitcast_convert_type(res, jnp.uint32).astype(
-                sum_dtype)
-            return _shift_exclusive(dec, x, fi, op, sum_dtype)
-        return _shift_exclusive(res.astype(sum_dtype), x, fi, op, sum_dtype)
-    if sum_dtype.kind == "u":
-        return jax.lax.bitcast_convert_type(res, jnp.uint32).astype(
-            sum_dtype)
-    return res.astype(sum_dtype)
+    return _segmented_scan(x, fi, sum_dtype, op, exclusive)

@@ -1,32 +1,32 @@
 """Bitonic sorter implementations: "sbitonic" and "abitonic".
 
+Both run Batcher's bitonic network on normalized key limbs, written in
+plain `lax`: one compare-exchange step (stage size K, distance J) views the
+pow-2-padded columns as (n / 2J, 2, J), compares each row of the middle
+axis with its partner lexicographically, and swaps the pair where the
+block's direction (ascending where (i & K) == 0) says so. A swap moves
+whole rows, so payload columns stay attached to their keys.
+
 sbitonic — parity with the reference's simple bitonic sorter
-(`src/cl_ops/sort/clo_sort_sbitonic.c:224-233`): one global kernel launch per
-bitonic (stage, step), every launch streaming the whole array through VMEM.
-Correct for any pow-2-padded size; pedagogically faithful, bandwidth-bound.
+(`src/cl_ops/sort/clo_sort_sbitonic.c:102-118,224-233`): one jitted
+dispatch per (stage, step), issued from a host loop like the reference's
+one kernel launch per step.
 
 abitonic — parity with the reference's advanced bitonic sorter
-(`clo_sort_abitonic.c:58-313`): multi-step fused kernels. The reference picks
-per-step kernels from a lookup table constrained by local-memory limits and
-the minps/maxps options; here the analogous *strategy* is choosing the VMEM
-block size B: all stages K <= B run in ONE full block-sort kernel, and each
-merge stage K > B runs log2(K/B) cross-block passes plus ONE fused local
-kernel covering every step J < B. The `vmem` option (bytes) bounds B the way
-`maxsfs`/local-memory probing bounds the reference's kernel choice
-(`clo_sort_abitonic.c:667-688`).
+(`clo_sort_abitonic.c:58-313`), whose point is running many steps per
+launch: here the whole network is one jit.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import jax
+import jax.numpy as jnp
 
-from cl_ops_tpu.ops.sort import bitonic_kernels as bk
-from cl_ops_tpu.ops.sort import keys as keymod
 from cl_ops_tpu.ops.sort.abstract import SortImplDef, sort_impls
-from cl_ops_tpu.utils.bits import is_po2, nlpo2
-from cl_ops_tpu.utils.platform import pallas_interpret
+from cl_ops_tpu.utils.bits import log2_floor, nlpo2
 
 # i32 max: pads sort after every real key; pad payloads also get this value
 # so key-equal ties against padding resolve real-before-pad.
@@ -38,146 +38,86 @@ _PAD = 0x7FFFFFFF
 _log = logging.getLogger("cl_ops_tpu.sort")
 
 
-def _pick_block_rows(n_arrays: int, vmem_bytes: int) -> int:
-    """Strategy selector: biggest po2 block fitting the VMEM budget.
+def lex_lt(a: tuple, b: tuple):
+    """Strict lexicographic a < b over tuples of i32 columns."""
+    lt = a[-1] < b[-1]
+    for x, y in zip(reversed(a[:-1]), reversed(b[:-1])):
+        lt = (x < y) | ((x == y) & lt)
+    return lt
 
-    Mosaic's scoped allocation for the fully unrolled in-block sort keeps
-    roughly 16 block-sized i32 temporaries live at peak (measured on v5e),
-    so the model is n_arrays * block_bytes * 16 <= budget — the analog of
-    abitonic's localmem model (`clo_sort_abitonic.c:667-688`).
+
+def cx_step(cols: tuple, *, k: int, j: int, num_keys: int) -> tuple:
+    """One bitonic compare-exchange step over pow-2-length columns.
+
+    Rows i and i + j (i & j == 0) are partners; a block of k rows sorts
+    ascending where (i & k) == 0 and descending otherwise. Only the first
+    num_keys columns are compared.
     """
-    rows = 8
-    while (n_arrays * (rows * 2) * bk.LANES * 4 * 16) <= vmem_bytes:
-        rows *= 2
-    return rows
+    n = cols[0].shape[0]
+    g = n // (2 * j)
+    pairs = [c.reshape(g, 2, j) for c in cols]
+    lo = tuple(p[:, 0, :] for p in pairs)
+    hi = tuple(p[:, 1, :] for p in pairs)
+    asc = ((jnp.arange(g, dtype=jnp.int32) * (2 * j)) & k) == 0
+    swap = jnp.where(asc[:, None], lex_lt(hi[:num_keys], lo[:num_keys]),
+                     lex_lt(lo[:num_keys], hi[:num_keys]))
+    return tuple(
+        jnp.stack([jnp.where(swap, h, l), jnp.where(swap, l, h)],
+                  axis=1).reshape(n)
+        for l, h in zip(lo, hi))
 
 
-def _pick_merge_rows(block_rows: int) -> int:
-    """Second-tier (merge) block: 4x the sort block.
-
-    Measured sweet spot on v5e (16M u32): merge at 4x block cuts HBM
-    sweeps and launch count without pushing Mosaic compile times or VPU
-    inefficiency of very fat blocks (8x+ was slower and compiled slowly).
-    """
-    return block_rows * 4
-
-
-def abitonic_traffic_bytes(n: int, n_arrays: int,
-                           options: dict | None = None) -> int:
-    """Bytes-moved model of one abitonic sort call (roofline accounting).
-
-    Replays the strategy selection of _make_bitonic_sorter for the given
-    options, then sums the fused schedule's launch traffic
-    (bitonic_kernels.fused_traffic_bytes) plus the pow-2 pad copy.
-    """
-    options = options or {}
-    vmem = int(options.get("vmem", 8 * 1024 * 1024))
-    padded = max(nlpo2(n), bk.MIN_ROWS * bk.LANES)
-    rows = padded // bk.LANES
-    br = int(options["block_rows"]) if "block_rows" in options else \
-        _pick_block_rows(n_arrays, vmem)
-    br = min(br, rows)
-    mr = int(options["merge_rows"]) if "merge_rows" in options else \
-        _pick_merge_rows(br)
-    mr = max(min(mr, rows), br)
-    slopt = options.get("single_launch")
-    sl = None if slopt is None else slopt == "1"
-    pad_bytes = (n + padded) * 4 * n_arrays if padded != n else 0
-    return bk.fused_traffic_bytes(padded, n_arrays, br, mr, sl) + pad_bytes
+def network(n: int):
+    """The (k, j) steps of the bitonic network over n (a power of 2)."""
+    for sk in range(1, log2_floor(n) + 1):
+        k = 1 << sk
+        j = k // 2
+        while j >= 1:
+            yield k, j
+            j //= 2
 
 
-def _resolve_geometry(rows: int, n_arrays: int, options: dict,
-                      interpret: bool,
-                      fused: bool) -> tuple[int, int, bool | None]:
-    """(block_rows, merge_rows, single_launch) for a padded (rows, 128)
-    problem; single_launch None = the static auto rule decides.
+def _pad(cols, n: int):
+    padded = nlpo2(n)
+    if padded == n:
+        return tuple(cols), padded
+    return tuple(jnp.pad(c, (0, padded - n), constant_values=_PAD)
+                 for c in cols), padded
 
-    Priority: explicit options > autotune cache (option "autotune=1",
-    live-device measurement, ops/sort/autotune.py) > the static VMEM
-    model — mirroring the reference's options > lookup table > localmem
-    probing order (clo_sort_abitonic.c:486-543, :58-313).
-    """
-    vmem = int(options.get("vmem", 8 * 1024 * 1024))
-    br = mr = sl = None
-    if "block_rows" in options:
-        br = int(options["block_rows"])
-        if not is_po2(br):
-            raise ValueError("block_rows must be a power of 2")
-    if "merge_rows" in options:
-        mr = int(options["merge_rows"])
-    if fused and options.get("autotune") == "1" and not interpret \
-            and (br is None or mr is None):
-        from cl_ops_tpu.ops.sort.autotune import tune_geometry
-        abr, amr, sl = tune_geometry(rows, n_arrays)
-        br = br if br is not None else abr
-        mr = mr if mr is not None else amr
-    if br is None:
-        br = _pick_block_rows(n_arrays, vmem)
-    br = min(br, rows)
-    if not fused:
-        return br, br, None
-    if mr is None:
-        mr = _pick_merge_rows(br)
-    return br, max(min(mr, rows), br), sl
+
+@functools.partial(jax.jit, static_argnames=("num_keys",))
+def _abitonic(cols, num_keys: int):
+    n = cols[0].shape[0]
+    for k, j in network(n):
+        cols = cx_step(cols, k=k, j=j, num_keys=num_keys)
+    return cols
+
+
+_sbitonic_step = jax.jit(cx_step, static_argnames=("k", "j", "num_keys"))
 
 
 def _make_bitonic_sorter(fused: bool):
     def make(spec, options):
-        interpret = pallas_interpret() or options.get("interpret") == "1"
-        n_limbs = keymod.num_limbs(spec.key_dtype)
-        jit_cache: dict = {}
-
-        # option "single_launch=0|1" forces the whole-VMEM one-kernel sort
-        # off/on; absent = autotune verdict (with autotune=1) or the
-        # static auto rule (small fused problems take it)
-        slopt = options.get("single_launch")
-        opt_single_launch = None if slopt is None else slopt == "1"
-
-        def build(br, mr, single_launch):
-            def fn(limbs, payload):
-                arrs = list(limbs) + ([payload] if payload is not None
-                                      else [])
-                n = arrs[0].shape[0]
-                arrs2d, padded = bk.pad_and_reshape(arrs,
-                                                    [_PAD] * len(arrs))
-                # KV sorts: the payload column only MOVES (num_keys) —
-                # measurably cheaper on the VPU-bound kernels. Ties in
-                # the key limbs then come out in unspecified payload
-                # order (the old payload-tiebreak order was equally
-                # arbitrary, just deterministic). Padding keeps the
-                # total comparator: a real all-i32-max key row would
-                # tie the pad rows on the prefix alone.
-                nk = len(limbs) if (payload is not None and padded == n) \
-                    else None
-                out = bk.bitonic_sort_2d(arrs2d, block_rows=br, fused=fused,
-                                         merge_rows=mr, interpret=interpret,
-                                         single_launch=single_launch,
-                                         num_keys=nk)
-                flat = [a.reshape(-1)[:n] for a in out]
-                out_limbs = tuple(flat[:len(limbs)])
-                out_payload = (flat[len(limbs)] if payload is not None
-                               else None)
-                return out_limbs, out_payload
-            return jax.jit(fn)
+        del spec, options
 
         def dispatch(limbs, payload):
-            n_arrays = len(limbs) + (1 if payload is not None else 0)
-            n = limbs[0].shape[0]
-            rows = max(nlpo2(n), bk.MIN_ROWS * bk.LANES) // bk.LANES
-            br, mr, tuned_sl = _resolve_geometry(rows, n_arrays, options,
-                                                 interpret, fused)
-            sl = opt_single_launch if opt_single_launch is not None \
-                else tuned_sl
-            key = (br, mr, n_arrays, sl)
-            if key not in jit_cache:
-                _log.debug(
-                    "%s: n=%d padded_rows=%d arrays=%d block_rows=%d "
-                    "merge_rows=%d single_launch=%s interpret=%s",
-                    "abitonic" if fused else "sbitonic", n, rows, n_arrays,
-                    br, mr, sl, interpret)
-                jit_cache[key] = build(br, mr, sl)
-            return jit_cache[key](limbs, payload)
-
+            cols = tuple(limbs) + ((payload,) if payload is not None else ())
+            n = cols[0].shape[0]
+            cols, padded = _pad(cols, n)
+            # A payload column only moves, unless padding could tie a real
+            # all-i32-max key row with the pad rows on the key prefix.
+            nk = len(limbs) if padded == n else len(cols)
+            _log.debug("%s: n=%d padded=%d columns=%d",
+                       "abitonic" if fused else "sbitonic", n, padded,
+                       len(cols))
+            if fused:
+                cols = _abitonic(cols, nk)
+            else:
+                for k, j in network(padded):
+                    cols = _sbitonic_step(cols, k=k, j=j, num_keys=nk)
+            cols = tuple(c[:n] for c in cols)
+            return (cols[:len(limbs)],
+                    cols[len(limbs)] if payload is not None else None)
         return dispatch
     return make
 
@@ -186,15 +126,14 @@ sort_impls.register("sbitonic")(lambda: SortImplDef(
     name="sbitonic",
     in_place=True,  # parity flag: ref sbitonic sorts in place
     make_limb_sorter=_make_bitonic_sorter(fused=False),
-    kernel_names=("cx_step", "cx_cross"),
-    vmem_usage=lambda k, n, o: 2 * int(o.get("block_rows", 1024)) * 128 * 4,
+    kernel_names=("cx_step",),
+    localmem_usage=lambda k, n, o: 0,
 ))
 
 sort_impls.register("abitonic")(lambda: SortImplDef(
     name="abitonic",
     in_place=True,
     make_limb_sorter=_make_bitonic_sorter(fused=True),
-    kernel_names=("block_sort", "cx_cross", "block_merge"),
-    vmem_usage=lambda k, n, o: 3 * _pick_block_rows(
-        2, int(o.get("vmem", 8 * 1024 * 1024))) * 128 * 4,
+    kernel_names=("network",),
+    localmem_usage=lambda k, n, o: 0,
 ))

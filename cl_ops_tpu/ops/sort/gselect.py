@@ -8,8 +8,8 @@ here by appending the element index as a final comparison limb — which also
 makes every rank unique, so the final placement is a unique-index scatter
 (the reference's `data_out[pos] = elem`, `clo_sort_gselect.cl:56`).
 
-The O(n^2) compare runs as XLA-fused (chunked) broadcast comparisons on the
-VPU — the idiomatic dense-vector form of the reference's per-work-item count
+The O(n^2) compare runs as XLA-fused (chunked) broadcast comparisons — the
+idiomatic dense-vector form of the reference's per-work-item count
 loop. Like the reference, this is only sensible for small n; it exists for
 algorithm parity and as a second oracle.
 """
@@ -86,5 +86,5 @@ sort_impls.register("gselect")(lambda: SortImplDef(
     in_place=False,  # parity: ref gselect is out-of-place
     make_limb_sorter=_make_gselect_sorter,
     kernel_names=("gselect_rank",),
-    vmem_usage=lambda k, n, o: 0,
+    localmem_usage=lambda k, n, o: 0,
 ))

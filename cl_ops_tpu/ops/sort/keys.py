@@ -4,9 +4,9 @@ The reference specializes sorters over 11 scalar key types via the
 `CLO_SORT_KEY_TYPE` / `CLO_SORT_COMPARE` macros
 (`src/cl_ops/sort/clo_sort_abstract.c:144-168`), and satradix additionally
 requires keys whose *bits* sort correctly (`clo_sort_satradix.cl:34-123`
-operates on raw key bits). The TPU analog: every key dtype is mapped by an
-order-preserving bijection onto one or two u32 limbs (Mosaic kernels on v5e
-have no 64-bit registers), so that lexicographic unsigned comparison of
+operates on raw key bits). Here every key dtype is mapped by an
+order-preserving bijection onto one or two u32 limbs, so that every sort
+and search works on one column type and lexicographic unsigned comparison of
 (hi, lo) limbs == the dtype's natural ordering. Radix passes then peel 8-bit
 digits off the limbs; bitonic compares limbs directly.
 
@@ -20,7 +20,7 @@ Mappings (standard bit tricks):
 
 Limbs are returned most-significant first. Each limb additionally has its
 sign bit flipped and is held as int32, so that *signed* i32 comparison of
-limbs equals the key order — Mosaic kernels and XLA sorts both compare
+limbs equals the key order — XLA sorts and the lax networks both compare
 naturally, with no unsigned-compare emulation.
 """
 

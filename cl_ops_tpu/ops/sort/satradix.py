@@ -1,133 +1,69 @@
 """satradix — LSD radix sort (Satish et al.), reference parity C7.
 
 Mirrors the reference's four-phase pass structure
-(`src/cl_ops/sort/clo_sort_satradix.c:264-313`):
+(`src/cl_ops/sort/clo_sort_satradix.c:264-313`), in plain `jnp`:
   1. per-block digit ranking (ref: satradix_localsort in-workgroup split sort,
-     `clo_sort_satradix.cl:34-123`) — here a Pallas kernel computing each
-     element's stable rank among same-digit elements of its block via
-     per-bin block scans (the same up/down-sweep work, vectorized);
+     `clo_sort_satradix.cl:34-123`) — each element's stable rank among
+     same-digit elements of its block, from a one-hot running count;
   2. per-block digit histogram in column-major `counters[nblocks*digit+blk]`
-     layout (ref: satradix_histogram, `clo_sort_satradix.cl:125-222`) —
-     emitted by the same kernel;
+     layout (ref: satradix_histogram, `clo_sort_satradix.cl:125-222`) — the
+     last row of the same running count;
   3. global exclusive scan of the counters via a COMPOSED Scan object —
      the reference composes a CloScan chosen by the `scan=` option
      (`clo_sort_satradix.c:29,296-300,393-406`); the `scan=` option is
-     honored here identically (default "xla"; "blelloch" = Pallas scan);
+     honored here identically (default "xla"; "blelloch" = the Triton
+     scan);
   4. scatter to global rank = counters_scan[digit,block] + local rank
      (ref: satradix_scatter, `clo_sort_satradix.cl:224-258`) — an XLA
      unique-index scatter.
 
 Options: `radix=` bins per pass (pow2, default 16 — the reference default,
-`clo_sort_satradix.c:353`), `scan=` composed scan impl, `scanopt...=`
-passthrough options (parity `clo_sort_satradix.c:407-421`), and
-`scatter=` placement strategy:
-  * "xla"     — XLA unique-index scatter. Structure-exact parity with the
-    reference's satradix_scatter, but element-serialized on TPU.
-  * "bitonic" (default) — place rows by sorting (dest, rows...) through
-    the fused Pallas bitonic: dest is a permutation, so ascending dest
-    order IS the scatter. TPU has no fast random scatter; a sort-based
-    placement keeps every pass on the vector units. This is why the
-    merge/bitonic family (abitonic) remains the performance flagship on
-    this hardware: an LSD radix pass is a stable partition, and the
-    cheapest stable partition primitive on TPU is itself the bitonic —
-    so radix cannot beat the sorter it is built from (see
-    docs/DESIGN.md).
+`clo_sort_satradix.c:353`), `block=` elements per ranking block (pow2,
+default 1024), `scan=` composed scan impl, `scanopt...=` passthrough
+options (parity `clo_sort_satradix.c:407-421`).
 
 Unlike the reference (pow-2 sizes only, `clo_sort_satradix.cl:41`), any
-length works — no padding is even needed since radix passes are
-shape-preserving. Total passes = key_bits / log2(radix)
-(`clo_sort_satradix.c:167-169`), doubled for 64-bit (two-limb) keys.
+length works — radix passes are shape-preserving. Total passes = key_bits /
+log2(radix) (`clo_sort_satradix.c:167-169`), doubled for 64-bit (two-limb)
+keys.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from cl_ops_tpu.ops.sort import keys as keymod
 from cl_ops_tpu.ops.sort.abstract import SortImplDef, sort_impls
 from cl_ops_tpu.utils.bits import cdiv, is_po2, log2_floor
-from cl_ops_tpu.utils.platform import pallas_interpret
-
-LANES = 128
 
 
-
-
-
-def _rank_hist_kernel(dig_ref, rank_ref, hist_ref, *, nbins: int,
-                      block_rows: int):
-    """Per-block: stable local rank within digit + digit histogram row.
-
-    rank[i] = #{j < i in block : digit_j == digit_i}; hist row holds the
-    block's per-bin counts in lanes 0..nbins-1.
-    """
-    from cl_ops_tpu.ops.scan.kernels import _block_inclusive_scan
-    d = dig_ref[...]
-    r = d.shape[0]
-    rank = jnp.zeros_like(d)
-    # (8, LANES) hist tile: TPU block shapes need sublane multiples of 8;
-    # every row carries the same histogram, readers take row 0.
-    hist_rows = jnp.zeros((8, LANES), jnp.int32)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (8, LANES), 1)
-    for b in range(nbins):
-        mask = (d == b).astype(jnp.int32)
-        incl = _block_inclusive_scan(mask)
-        rank = rank + (incl - mask) * mask
-        # bin count = last inclusive-scan element (static scalar pick;
-        # jnp.sum reductions promote to i64 inside Mosaic under x64)
-        cnt = incl[r - 1, LANES - 1]
-        hist_rows = jnp.where(lane == b, cnt, hist_rows)
-    rank_ref[...] = rank
-    hist_ref[...] = hist_rows
-
-
-@functools.partial(jax.jit, static_argnames=("nbins", "block_rows",
-                                             "interpret"))
-def _rank_and_hist(digits_2d, *, nbins, block_rows, interpret):
-    n_blocks = digits_2d.shape[0] // block_rows
-
-    def row_map(i):
-        return (i, i * 0)
-
-    rank, hist = pl.pallas_call(
-        functools.partial(_rank_hist_kernel, nbins=nbins,
-                          block_rows=block_rows),
-        grid=(n_blocks,),
-        in_specs=[pl.BlockSpec((block_rows, LANES), row_map,
-                               memory_space=pltpu.VMEM)],
-        out_specs=(
-            pl.BlockSpec((block_rows, LANES), row_map,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, LANES), row_map, memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct(digits_2d.shape, jnp.int32),
-            jax.ShapeDtypeStruct((n_blocks * 8, LANES), jnp.int32),
-        ),
-        interpret=interpret,
-    )(digits_2d)
-    return rank, hist.reshape(n_blocks, 8, LANES)[:, 0, :]
+def _rank_and_hist(digits, radix: int, block: int):
+    """(stable rank of each element among its block's same-digit elements,
+    (n_blocks, radix) digit histogram)."""
+    n = digits.shape[0]
+    n_blocks = max(cdiv(n, block), 1)
+    # pads take an out-of-range digit, so they never count in a bin
+    d2 = jnp.pad(digits, (0, n_blocks * block - n),
+                 constant_values=radix).reshape(n_blocks, block)
+    onehot = (d2[:, :, None] == jnp.arange(radix, dtype=jnp.int32)
+              ).astype(jnp.int32)
+    incl = jnp.cumsum(onehot, axis=1, dtype=jnp.int32)
+    rank = jnp.take_along_axis(
+        incl, jnp.minimum(d2, radix - 1)[:, :, None], axis=2)[:, :, 0] - 1
+    return rank.reshape(-1)[:n], incl[:, -1, :]
 
 
 def _make_satradix_sorter(spec, options):
-    interpret = pallas_interpret() or options.get("interpret") == "1"
     radix = int(options.get("radix", 16))
     if not is_po2(radix) or not 2 <= radix <= 256:
         raise ValueError("radix must be a power of 2 in [2, 256]")
     bits = log2_floor(radix)
-    block_rows = int(options.get("block_rows", 256))
+    block = int(options.get("block", 1024))
+    if not is_po2(block):
+        raise ValueError("block must be a power of 2")
     scan_name = options.get("scan", "xla")
     scan_opts = {k[4:]: v for k, v in options.items()
                  if k.startswith("scan") and k != "scan"}
-
-    scatter_mode = options.get("scatter", "bitonic")
-    if scatter_mode not in ("xla", "bitonic"):
-        raise ValueError("scatter= must be 'xla' or 'bitonic'")
 
     from cl_ops_tpu.ops.scan import scan_new
     scanner = scan_new(scan_name, scan_opts or None, elem_dtype="int",
@@ -136,35 +72,16 @@ def _make_satradix_sorter(spec, options):
     def radix_pass(arrs, digits):
         """One stable partition by `digits` (values in [0, radix))."""
         n = digits.shape[0]
-        block_elems = block_rows * LANES
-        n_blocks = max(cdiv(n, block_elems), 1)
-        padded = n_blocks * block_elems
-        d2 = digits
-        if padded != n:
-            # pad with an out-of-range digit so pads never match a bin
-            d2 = jnp.pad(digits, (0, padded - n), constant_values=radix)
-        d2 = d2.reshape(n_blocks * block_rows, LANES)
-        rank2d, hist = _rank_and_hist(d2, nbins=radix, block_rows=block_rows,
-                                      interpret=interpret)
-        local_rank = rank2d.reshape(-1)[:n]
+        local_rank, hist = _rank_and_hist(digits, radix, block)
+        n_blocks = hist.shape[0]
         # counters in column-major digit-major order (parity with
         # counters[num_groups*digit+wg], clo_sort_satradix.cl:158).
-        counters = hist[:, :radix].T.reshape(-1)
-        base = scanner.scan_with_device_data(counters.astype(jnp.int32))
-        base = jnp.asarray(base, jnp.int32)
-        # dest = base[digit * n_blocks + block] + local_rank
-        elem_block = (
-            jax.lax.broadcasted_iota(jnp.int32, (n,), 0) // block_elems)
+        counters = hist.T.reshape(-1)
+        base = scanner.scan_with_device_data(counters)
+        elem_block = jax.lax.broadcasted_iota(jnp.int32, (n,), 0) // block
         dest = jnp.take(base, digits * n_blocks + elem_block) + local_rank
-        if scatter_mode == "bitonic":
-            from cl_ops_tpu.ops.exec import psort
-            return psort.sort_i32_cols((dest, *arrs),
-                                       interpret=interpret)[1:]
-        out = []
-        for a in arrs:
-            out.append(jnp.zeros_like(a).at[dest].set(
-                a, unique_indices=True, mode="promise_in_bounds"))
-        return tuple(out)
+        return tuple(jnp.zeros_like(a).at[dest].set(
+            a, unique_indices=True, mode="promise_in_bounds") for a in arrs)
 
     def fn(limbs, payload):
         arrs = tuple(limbs) + ((payload,) if payload is not None else ())
@@ -181,12 +98,7 @@ def _make_satradix_sorter(spec, options):
         out_payload = arrs[n_limbs] if payload is not None else None
         return out_limbs, out_payload
 
-    jitted = jax.jit(fn)
-
-    def dispatch(limbs, payload):
-        return jitted(limbs, payload)
-
-    return dispatch
+    return jax.jit(fn)
 
 
 sort_impls.register("satradix")(lambda: SortImplDef(
@@ -194,6 +106,5 @@ sort_impls.register("satradix")(lambda: SortImplDef(
     in_place=False,  # parity: ref satradix is out-of-place (data_aux buffer)
     make_limb_sorter=_make_satradix_sorter,
     kernel_names=("rank_hist", "counters_scan", "scatter"),
-    vmem_usage=lambda k, n, o: (int(o.get("block_rows", 256)) * 128 * 4 * 3
-                                if k == "rank_hist" else 0),
+    localmem_usage=lambda k, n, o: 0,
 ))

@@ -1,7 +1,7 @@
 """XLA-native sort implementation ("xla"): lax.sort on normalized limbs.
 
 The registry's known-good baseline — the analog of picking a vendor routine.
-It is also the correctness oracle the Pallas impls are tested against, the
+It is also the correctness oracle the other impls are tested against, the
 way the reference benchmarks verify against a serial host pass
 (`src/benchmarks/clo_sort_bench.c:216-227`). Stable (is_stable=True), so
 payload order among equal keys is preserved like the reference's gselect
@@ -42,5 +42,5 @@ sort_impls.register("xla")(lambda: SortImplDef(
     in_place=False,
     make_limb_sorter=_make_limb_sorter,
     kernel_names=("lax_sort",),
-    vmem_usage=lambda k, n, o: 0,
+    localmem_usage=lambda k, n, o: 0,
 ))

@@ -2,8 +2,8 @@
 
 No referent in the reference library (single-device only, SURVEY.md §2.3);
 this layer realizes the BASELINE.json north star: row-partitioned tables over
-a device mesh, per-chip Pallas kernels wrapped in shard_map, XLA collectives
-(all_gather/psum/all_to_all) over ICI/DCN as the exchange backend.
+a device mesh, per-device operators wrapped in shard_map, XLA collectives
+(all_gather/psum/all_to_all, NCCL on GPUs) as the exchange backend.
 """
 
 from cl_ops_tpu.parallel.mesh import (DATA_AXIS, make_mesh, replicated,

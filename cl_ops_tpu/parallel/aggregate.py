@@ -15,10 +15,9 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from cl_ops_tpu.parallel.mesh import DATA_AXIS, put_sharded
+from cl_ops_tpu.parallel.mesh import DATA_AXIS, mesh_program, put_sharded
 from cl_ops_tpu.parallel.splitters import (keyed_exchange_once,
                                            keyed_exchange_replan)
 from cl_ops_tpu.utils.bits import is_po2
@@ -28,7 +27,6 @@ def dist_group_aggregate(keys, values, mesh: Mesh, *, num_groups: int,
                          capacity: int, agg: str = "sum",
                          axis: str = DATA_AXIS, partition: str = "hash",
                          max_replan: int = 3, samples_per_chip: int = 256,
-                         use_pallas: bool | None = None,
                          check: str = "replan"):
     """Aggregate values by key across the mesh.
 
@@ -37,9 +35,6 @@ def dist_group_aggregate(keys, values, mesh: Mesh, *, num_groups: int,
     overflow re-plans adaptively (see keyed_exchange_replan) and raises
     rather than ever dropping rows.
 
-    use_pallas: sort the local (validity, key, value) rows with the fused
-    Pallas bitonic (psort) instead of lax.sort; needs 4-byte keys and
-    values. Default: on TPU.
     check: "replan" (default) or "defer" — same contract as dist_hash_join;
       "defer" skips the host-synced overflow check (jit-traceable) and
       appends the shuffle's per-chip `dropped` counter to the outputs for
@@ -54,7 +49,7 @@ def dist_group_aggregate(keys, values, mesh: Mesh, *, num_groups: int,
         keys, (values,), (agg,), mesh, num_groups=num_groups,
         capacity=capacity, axis=axis, partition=partition,
         max_replan=max_replan, samples_per_chip=samples_per_chip,
-        use_pallas=use_pallas, check=check)
+        check=check)
     if check == "defer":
         gk, tables, cnt, dropped = out
         return gk, tables[0], cnt, dropped
@@ -67,7 +62,6 @@ def dist_group_aggregate_cols(keys, values, aggs, mesh: Mesh, *,
                               axis: str = DATA_AXIS,
                               partition: str = "hash", max_replan: int = 3,
                               samples_per_chip: int = 256,
-                              use_pallas: bool | None = None,
                               check: str = "replan"):
     """Multi-measure distributed GROUP BY — the mesh-level
     group_aggregate_cols (the `SELECT sum(a), min(b), count(*)` shape).
@@ -95,9 +89,6 @@ def dist_group_aggregate_cols(keys, values, aggs, mesh: Mesh, *,
     for a in aggs:
         if a not in _AGGS:
             raise ValueError(f"unknown agg {a!r}")
-    if use_pallas is None:
-        from cl_ops_tpu.utils.platform import on_tpu
-        use_pallas = on_tpu()
     # min/max gather-vs-resort decision per column: the first measure (and
     # any alias of it) becomes a secondary sort key. Decided HERE on real
     # arrays — tracer identity would not survive the shuffle anyway.
@@ -117,58 +108,32 @@ def dist_group_aggregate_cols(keys, values, aggs, mesh: Mesh, *,
             op_name="dist_group_aggregate")
     counts, k, *vs = res
 
-    from cl_ops_tpu.ops.exec import psort
-    from cl_ops_tpu.ops.sort import keys as keymod
-    from cl_ops_tpu.utils.platform import pallas_interpret
-    interp = pallas_interpret()
-    pallas_local = (use_pallas
-                    and jnp.dtype(keys.dtype).itemsize == 4
-                    and all(jnp.dtype(v.dtype).itemsize == 4
-                            for v in values))
-
-    def local_fn(c, kl, *vls):
-        c = c.reshape(-1)
-        slot = jax.lax.broadcasted_iota(
-            jnp.int32, (n_chips, cap), 1)
-        valid = (slot < c[:, None]).reshape(-1)
-        kf = kl.reshape(-1)
-        vfs = [v.reshape(-1) for v in vls]
-        # Sort with the INVERTED valid mask as primary key: valid rows form
-        # a key-sorted prefix, invalid rows trail. Validity never enters key
-        # space, so any real key value (incl. dtype extremes) aggregates
-        # correctly; the boundary reduce ignores rows past n_valid.
-        inv = jnp.logical_not(valid).astype(jnp.int32)
-        if pallas_local:
-            # measures sort as trailing comparator columns — same
-            # semantics as lax.sort with all columns as keys (within-group
-            # order is irrelevant for sums; min/max on the first measure
-            # read group boundaries by gather). Measures must be
-            # ORDER-NORMALIZED limbs, not a raw bitcast: as_i32 would
-            # order float32/uint32 values by bit patterns and min/max
-            # would gather the wrong group ends.
-            limbs = keymod.to_limbs(kf)
-            vlimb_sets = [keymod.to_limbs(v) for v in vfs]
-            out = psort.sort_i32_cols(
-                (inv, *limbs, *(c2 for vl in vlimb_sets for c2 in vl)),
-                interpret=interp)
-            sk = keymod.from_limbs(list(out[1:1 + len(limbs)]), kf.dtype)
-            svs, off = [], 1 + len(limbs)
-            for v, vl in zip(vfs, vlimb_sets):
-                svs.append(keymod.from_limbs(list(out[off:off + len(vl)]),
-                                             v.dtype))
-                off += len(vl)
-        else:
-            out = jax.lax.sort([inv, kf, *vfs], num_keys=2 + len(vfs))
-            sk, svs = out[1], list(out[2:])
-        n_valid = jnp.sum(valid.astype(jnp.int32), dtype=jnp.int32)
-        from cl_ops_tpu.ops.exec.aggregate import _boundary_reduce_cols
-        gkeys, tables, cnt = _boundary_reduce_cols(
-            sk, tuple(svs), num_groups=num_groups, aggs=tuple(aggs),
-            key_ordered=key_ordered, n_valid=n_valid)
-        return gkeys, tables, cnt.reshape(1)
-
-    fn = shard_map(local_fn, mesh=mesh, in_specs=P(axis),
-                   out_specs=(P(axis), tuple(P(axis) for _ in values),
-                              P(axis)), check_vma=False)
+    out_specs = (P(axis), tuple(P(axis) for _ in values), P(axis))
+    fn = mesh_program(_local_aggregate, mesh, P(axis), out_specs,
+                      n_chips=n_chips, cap=cap, num_groups=num_groups,
+                      aggs=tuple(aggs), key_ordered=key_ordered)
     out = fn(*(put_sharded(a, mesh, axis) for a in (counts, k, *vs)))
     return out + (dropped,) if check == "defer" else out
+
+
+def _local_aggregate(c, kl, *vls, n_chips, cap, num_groups, aggs,
+                     key_ordered):
+    """One chip's aggregate over its received (n_chips, cap) buckets."""
+    from cl_ops_tpu.ops.exec.aggregate import _boundary_reduce_cols
+    c = c.reshape(-1)
+    slot = jax.lax.broadcasted_iota(jnp.int32, (n_chips, cap), 1)
+    valid = (slot < c[:, None]).reshape(-1)
+    kf = kl.reshape(-1)
+    vfs = [v.reshape(-1) for v in vls]
+    # Sort with the INVERTED valid mask as primary key: valid rows form a
+    # key-sorted prefix, invalid rows trail. Validity never enters key
+    # space, so any real key value (incl. dtype extremes) aggregates
+    # correctly; the boundary reduce ignores rows past n_valid.
+    inv = jnp.logical_not(valid).astype(jnp.int32)
+    out = jax.lax.sort([inv, kf, *vfs], num_keys=2 + len(vfs))
+    sk, svs = out[1], list(out[2:])
+    n_valid = jnp.sum(valid.astype(jnp.int32), dtype=jnp.int32)
+    gkeys, tables, cnt = _boundary_reduce_cols(
+        sk, tuple(svs), num_groups=num_groups, aggs=aggs,
+        key_ordered=key_ordered, n_valid=n_valid)
+    return gkeys, tables, cnt.reshape(1)

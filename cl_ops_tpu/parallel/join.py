@@ -18,43 +18,17 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from cl_ops_tpu.parallel.mesh import DATA_AXIS, iota_sharded, put_sharded
+from cl_ops_tpu.parallel.mesh import (DATA_AXIS, iota_sharded, mesh_program,
+                                      put_sharded)
 from cl_ops_tpu.parallel.splitters import (hash_partition_ids,
                                            keyed_exchange_once,
                                            keyed_exchange_replan)
 from cl_ops_tpu.utils.bits import is_po2
 
-_I32_MAX = 0x7FFFFFFF
-
-
 def _key_partition(keys, n_chips: int):
     return hash_partition_ids(keys, n_chips)
-
-
-def _local_table_probe_pallas(skey_limbs, sval_i32, pkey, interp):
-    """Band-kernel local probe: (idx_l, idx_r, first-match val as i32).
-
-    The direct band probe (no probe sort, no restore) searches the sorted
-    local table twice — key for the upper bound, key-1 for the lower — the
-    same two-pass structure as the single-chip `_probe_sorted_multi`
-    (ops/exec/join.py). Invalid table slots hold the normalized-limb max;
-    callers clip counts at nv.
-    """
-    from cl_ops_tpu.ops.exec import bandprobe
-    from cl_ops_tpu.ops.exec.join import _limbs_minus_one
-    from cl_ops_tpu.ops.sort import keys as keymod
-    p_limbs = tuple(keymod.to_limbs(pkey))
-    ub, _, _, _ = bandprobe.probe_direct(skey_limbs, sval_i32, p_limbs,
-                                         interpret=interp)
-    pm1, is_min = _limbs_minus_one(p_limbs)
-    lb, _, _, vnext = bandprobe.probe_direct(skey_limbs, sval_i32, pm1,
-                                             interpret=interp)
-    lb = jnp.where(is_min, 0, lb)
-    vnext = jnp.where(is_min, sval_i32[0], vnext)
-    return lb, ub, vnext
 
 
 def dist_hash_join(build_keys, build_vals, probe_keys, mesh: Mesh, *,
@@ -62,7 +36,7 @@ def dist_hash_join(build_keys, build_vals, probe_keys, mesh: Mesh, *,
                    axis: str = DATA_AXIS, unique_build: bool = True,
                    join_type: str = "inner", partition: str = "hash",
                    max_replan: int = 3, samples_per_chip: int = 256,
-                   use_pallas: bool | None = None, check: str = "replan"):
+                   check: str = "replan"):
     """Equi-join of row-sharded relations.
 
     capacity_* bound rows per (source chip -> partition) bucket in the two
@@ -73,10 +47,6 @@ def dist_hash_join(build_keys, build_vals, probe_keys, mesh: Mesh, *,
 
     partition: "hash" or "range" (start from skew-aware splitters sampled
     from the probe side — the right opener for known-Zipf fact keys).
-    use_pallas: run the local probe through the direct band kernel
-    (requires the local table, n_chips * capacity_build rows after any
-    re-plan, to fit bandprobe.DIRECT_MAX and 4-byte keys/values; larger
-    tables fall back to the XLA searchsorted local join). Default: on TPU.
     check: "replan" (default) validates the shuffles' overflow counters on
       the host and adaptively re-plans — never loses rows, but costs one
       blocking host read per side per attempt and cannot run under jax.jit.
@@ -100,9 +70,6 @@ def dist_hash_join(build_keys, build_vals, probe_keys, mesh: Mesh, *,
         raise ValueError(f"unknown join_type {join_type!r}")
     if check not in ("replan", "defer"):
         raise ValueError(f"unknown check {check!r}")
-    if use_pallas is None:
-        from cl_ops_tpu.utils.platform import on_tpu
-        use_pallas = on_tpu()
     n_chips = mesh.shape[axis]
     if not is_po2(n_chips):
         raise ValueError("mesh axis size must be a power of 2")
@@ -129,114 +96,10 @@ def dist_hash_join(build_keys, build_vals, probe_keys, mesh: Mesh, *,
     bcounts, bk, bv = bres
     pcounts, pk, pg = pres
 
-    from cl_ops_tpu.ops.exec import bandprobe, psort
-    from cl_ops_tpu.ops.sort import keys as keymod
-    from cl_ops_tpu.utils.platform import pallas_interpret
-    interp = pallas_interpret()
-    table_len = n_chips * cb
-    pallas_local = (use_pallas and table_len <= bandprobe.DIRECT_MAX
-                    and jnp.dtype(build_vals.dtype).itemsize == 4
-                    and jnp.dtype(build_keys.dtype).itemsize == 4)
-
     # 3. local join per chip + route results back by origin chip
-    def local_fn(bc, bkl, bvl, pc, pkl, pgl):
-        bc = bc.reshape(-1)
-        pc = pc.reshape(-1)
-        bkl = bkl.reshape(n_chips, cb)
-        bvl = bvl.reshape(n_chips, cb)
-        pkl = pkl.reshape(n_chips, cp)
-        pgl = pgl.reshape(n_chips, cp)
-        slot_b = jax.lax.broadcasted_iota(jnp.int32, bkl.shape, 1)
-        valid_b = slot_b < bc[:, None]
-        slot_p = jax.lax.broadcasted_iota(jnp.int32, pkl.shape, 1)
-        valid_p = slot_p < pc[:, None]
-
-        # Build a sorted local dim table with validity as the PRIMARY sort
-        # key (invalid slots last) — validity never enters key space, so a
-        # real key equal to the dtype max still joins correctly.
-        inv_b = jnp.logical_not(valid_b).astype(jnp.int32).reshape(-1)
-        nv = jnp.sum(bc, dtype=jnp.int32)  # valid build rows (prefix)
-        pkey = pkl.reshape(-1)
-        if pallas_local:
-            # Pallas local path: sort the table with the fused bitonic
-            # (psort) and search it with the direct band kernel.
-            bl_limbs = keymod.to_limbs(bkl.reshape(-1))
-            sout = psort.sort_i32_cols(
-                (inv_b, *bl_limbs, psort.as_i32(bvl.reshape(-1))),
-                interpret=interp)
-            pos = jax.lax.broadcasted_iota(jnp.int32, (table_len,), 0)
-            svalid = pos < nv
-            s_limbs = tuple(jnp.where(svalid, l, jnp.int32(_I32_MAX))
-                            for l in sout[1:-1])
-            sval_i32 = psort.as_i32(sout[-1])
-            idx_l, idx_r, vnext = _local_table_probe_pallas(
-                s_limbs, sval_i32, pkey, interp)
-            val = psort.from_i32(vnext, bvl.dtype)
-        else:
-            # XLA local path. For searchsorted the trailing invalid slots
-            # take the dtype max (keeps the array monotone); counts clip
-            # at nv so probes equal to that fill never count fill slots.
-            _, skey, sval, svalid_i = jax.lax.sort(
-                [inv_b, bkl.reshape(-1), bvl.reshape(-1),
-                 valid_b.astype(jnp.int32).reshape(-1)], num_keys=2)
-            svalid = svalid_i > 0
-            kdt = jnp.dtype(skey.dtype)
-            maxk = (jnp.asarray(jnp.iinfo(kdt).max, kdt)
-                    if jnp.issubdtype(kdt, jnp.integer)
-                    else jnp.asarray(jnp.inf, kdt))
-            skey = jnp.where(svalid, skey, maxk)
-            idx_l = jnp.searchsorted(skey, pkey,
-                                     side="left").astype(jnp.int32)
-            idx_r = jnp.searchsorted(skey, pkey,
-                                     side="right").astype(jnp.int32)
-            val = jnp.take(sval, jnp.minimum(idx_l, table_len - 1))
-        cnt = (jnp.minimum(idx_r, nv) - jnp.minimum(idx_l, nv)) \
-            * valid_p.reshape(-1).astype(jnp.int32)
-
-        # 4. send (gidx, found, val) back to the origin chip
-        g = pgl.reshape(-1)
-        origin = jnp.where(valid_p.reshape(-1), g // shard_len,
-                           jnp.int32(n_chips))  # invalid rows -> dropped
-        # rows received from origin o number <= cp, so cp-sized return
-        # buckets can never overflow
-        cap_back = cp
-        m = g.shape[0]
-        order2 = jnp.argsort(origin, stable=True)
-        so = jnp.take(origin, order2)
-        pos2 = jax.lax.broadcasted_iota(jnp.int32, (m,), 0)
-        start = jnp.searchsorted(so, jnp.arange(
-            n_chips, dtype=so.dtype)).astype(jnp.int32)
-        rank = pos2 - jnp.take(start, jnp.minimum(so, n_chips - 1))
-        dest = jnp.minimum(so, n_chips) * cap_back + rank
-        dest = jnp.where((so < n_chips) & (rank < cap_back), dest,
-                         n_chips * cap_back)
-
-        def route(col, dtype):
-            buf = jnp.zeros((n_chips * cap_back,), dtype).at[dest].set(
-                jnp.take(col, order2).astype(dtype), mode="drop",
-                unique_indices=True)
-            return jax.lax.all_to_all(
-                buf.reshape(n_chips, cap_back), axis, split_axis=0,
-                concat_axis=0, tiled=False).reshape(-1)
-
-        rg = route(g, jnp.int32)
-        rcnt = route(cnt, jnp.int32)
-        rval = route(val, val.dtype)
-        # mark empty return slots: route a validity flag too
-        rvalid = route(jnp.ones((m,), jnp.int32), jnp.int32)
-
-        # 5. scatter into this chip's original row order
-        local_rows = shard_len
-        li = rg % local_rows
-        li = jnp.where(rvalid > 0, li, local_rows)  # drop empty slots
-        cnt_out = jnp.zeros((local_rows,), jnp.int32).at[li].set(
-            rcnt, mode="drop")
-        vals_out = jnp.zeros((local_rows,), rval.dtype).at[li].set(
-            rval, mode="drop")
-        return cnt_out, vals_out
-
-    fn = shard_map(local_fn, mesh=mesh, in_specs=P(axis),
-                   out_specs=(P(axis), P(axis)), check_vma=False)
+    fn = mesh_program(_local_join, mesh, P(axis), (P(axis), P(axis)),
+                      n_chips=n_chips, cb=cb, cp=cp, shard_len=shard_len,
+                      axis=axis)
     cnt, vals = fn(*(put_sharded(a, mesh, axis)
                      for a in (bcounts, bk, bv, pcounts, pk, pg)))
     if join_type == "semi":
@@ -301,52 +164,139 @@ def dist_hash_join_expand(build_keys, build_vals, probe_keys, mesh: Mesh, *,
     bcounts, bk, bv = bres
     pcounts, pk, pg = pres
 
-    from cl_ops_tpu.ops.exec.join import (_expand_from_ranges,
-                                          _jit_val_cols, _val_from_cols)
-
-    def local_fn(bc, bkl, bvl, pc, pkl, pgl):
-        bc = bc.reshape(-1)
-        pc = pc.reshape(-1)
-        bkl = bkl.reshape(n_chips, cb)
-        bvl = bvl.reshape(n_chips, cb)
-        pkl = pkl.reshape(n_chips, cp)
-        pgl = pgl.reshape(n_chips, cp)
-        slot_b = jax.lax.broadcasted_iota(jnp.int32, bkl.shape, 1)
-        valid_b = slot_b < bc[:, None]
-        slot_p = jax.lax.broadcasted_iota(jnp.int32, pkl.shape, 1)
-        valid_p = (slot_p < pc[:, None]).reshape(-1)
-
-        # sorted local build table: valid rows form the prefix
-        inv_b = jnp.logical_not(valid_b).astype(jnp.int32).reshape(-1)
-        _, skey, sval = jax.lax.sort(
-            [inv_b, bkl.reshape(-1), bvl.reshape(-1)], num_keys=2)
-        nv = jnp.sum(bc, dtype=jnp.int32)
-        kdt = jnp.dtype(skey.dtype)
-        maxk = (jnp.asarray(jnp.iinfo(kdt).max, kdt)
-                if jnp.issubdtype(kdt, jnp.integer)
-                else jnp.asarray(jnp.inf, kdt))
-        pos_b = jax.lax.broadcasted_iota(jnp.int32, skey.shape, 0)
-        skey = jnp.where(pos_b < nv, skey, maxk)
-
-        # probes sorted by (validity, key, global row id) — the row id is
-        # a KEY so equal-key output order is the documented arrival order,
-        # deterministic across backends
-        inv_p = jnp.logical_not(valid_p).astype(jnp.int32)
-        _, spk, sg, svalid_i = jax.lax.sort(
-            [inv_p, pkl.reshape(-1), pgl.reshape(-1),
-             valid_p.astype(jnp.int32)], num_keys=3)
-        ub = jnp.minimum(jnp.searchsorted(
-            skey, spk, side="right").astype(jnp.int32), nv)
-        lb = jnp.minimum(jnp.searchsorted(
-            skey, spk).astype(jnp.int32), nv)
-        ub = jnp.where(svalid_i > 0, ub, 0)
-        lb = jnp.where(svalid_i > 0, lb, 0)
-        total, pidx, vals = _expand_from_ranges(
-            sg, ub, lb, _jit_val_cols(sval), capacity_out)
-        return (total.reshape(1), pidx, _val_from_cols(vals, bvl.dtype))
-
-    fn = shard_map(local_fn, mesh=mesh, in_specs=P(axis),
-                   out_specs=(P(axis), P(axis), P(axis)), check_vma=False)
+    fn = mesh_program(_local_expand, mesh, P(axis),
+                      (P(axis), P(axis), P(axis)), n_chips=n_chips, cb=cb,
+                      cp=cp, capacity_out=capacity_out)
     out = fn(*(put_sharded(a, mesh, axis)
                for a in (bcounts, bk, bv, pcounts, pk, pg)))
     return out + (dropped,) if check == "defer" else out
+
+
+def _local_join(bc, bkl, bvl, pc, pkl, pgl, *, n_chips, cb, cp, shard_len,
+                axis):
+    """One chip's join of its partition; results go back to origin rows."""
+    table_len = n_chips * cb
+    bc = bc.reshape(-1)
+    pc = pc.reshape(-1)
+    bkl = bkl.reshape(n_chips, cb)
+    bvl = bvl.reshape(n_chips, cb)
+    pkl = pkl.reshape(n_chips, cp)
+    pgl = pgl.reshape(n_chips, cp)
+    slot_b = jax.lax.broadcasted_iota(jnp.int32, bkl.shape, 1)
+    valid_b = slot_b < bc[:, None]
+    slot_p = jax.lax.broadcasted_iota(jnp.int32, pkl.shape, 1)
+    valid_p = slot_p < pc[:, None]
+
+    # Build a sorted local dim table with validity as the PRIMARY sort
+    # key (invalid slots last) — validity never enters key space, so a
+    # real key equal to the dtype max still joins correctly.
+    inv_b = jnp.logical_not(valid_b).astype(jnp.int32).reshape(-1)
+    nv = jnp.sum(bc, dtype=jnp.int32)  # valid build rows (prefix)
+    pkey = pkl.reshape(-1)
+    # For searchsorted the trailing invalid slots take the dtype max
+    # (keeps the array monotone); counts clip at nv so probes equal to
+    # that fill never count fill slots.
+    _, skey, sval, svalid_i = jax.lax.sort(
+        [inv_b, bkl.reshape(-1), bvl.reshape(-1),
+         valid_b.astype(jnp.int32).reshape(-1)], num_keys=2)
+    svalid = svalid_i > 0
+    kdt = jnp.dtype(skey.dtype)
+    maxk = (jnp.asarray(jnp.iinfo(kdt).max, kdt)
+            if jnp.issubdtype(kdt, jnp.integer)
+            else jnp.asarray(jnp.inf, kdt))
+    skey = jnp.where(svalid, skey, maxk)
+    idx_l = jnp.searchsorted(skey, pkey,
+                             side="left").astype(jnp.int32)
+    idx_r = jnp.searchsorted(skey, pkey,
+                             side="right").astype(jnp.int32)
+    val = jnp.take(sval, jnp.minimum(idx_l, table_len - 1))
+    cnt = (jnp.minimum(idx_r, nv) - jnp.minimum(idx_l, nv)) \
+        * valid_p.reshape(-1).astype(jnp.int32)
+
+    # 4. send (gidx, found, val) back to the origin chip
+    g = pgl.reshape(-1)
+    origin = jnp.where(valid_p.reshape(-1), g // shard_len,
+                       jnp.int32(n_chips))  # invalid rows -> dropped
+    # rows received from origin o number <= cp, so cp-sized return
+    # buckets can never overflow
+    cap_back = cp
+    m = g.shape[0]
+    order2 = jnp.argsort(origin, stable=True)
+    so = jnp.take(origin, order2)
+    pos2 = jax.lax.broadcasted_iota(jnp.int32, (m,), 0)
+    start = jnp.searchsorted(so, jnp.arange(
+        n_chips, dtype=so.dtype)).astype(jnp.int32)
+    rank = pos2 - jnp.take(start, jnp.minimum(so, n_chips - 1))
+    dest = jnp.minimum(so, n_chips) * cap_back + rank
+    dest = jnp.where((so < n_chips) & (rank < cap_back), dest,
+                     n_chips * cap_back)
+
+    def route(col, dtype):
+        buf = jnp.zeros((n_chips * cap_back,), dtype).at[dest].set(
+            jnp.take(col, order2).astype(dtype), mode="drop",
+            unique_indices=True)
+        return jax.lax.all_to_all(
+            buf.reshape(n_chips, cap_back), axis, split_axis=0,
+            concat_axis=0, tiled=False).reshape(-1)
+
+    rg = route(g, jnp.int32)
+    rcnt = route(cnt, jnp.int32)
+    rval = route(val, val.dtype)
+    # mark empty return slots: route a validity flag too
+    rvalid = route(jnp.ones((m,), jnp.int32), jnp.int32)
+
+    # 5. scatter into this chip's original row order
+    local_rows = shard_len
+    li = rg % local_rows
+    li = jnp.where(rvalid > 0, li, local_rows)  # drop empty slots
+    cnt_out = jnp.zeros((local_rows,), jnp.int32).at[li].set(
+        rcnt, mode="drop")
+    vals_out = jnp.zeros((local_rows,), rval.dtype).at[li].set(
+        rval, mode="drop")
+    return cnt_out, vals_out
+
+
+def _local_expand(bc, bkl, bvl, pc, pkl, pgl, *, n_chips, cb, cp,
+                  capacity_out):
+    """One chip's full expansion of its partition's matching pairs."""
+    from cl_ops_tpu.ops.exec.join import (_expand_from_ranges, _val_cols,
+                                          _val_from_cols)
+    bc = bc.reshape(-1)
+    pc = pc.reshape(-1)
+    bkl = bkl.reshape(n_chips, cb)
+    bvl = bvl.reshape(n_chips, cb)
+    pkl = pkl.reshape(n_chips, cp)
+    pgl = pgl.reshape(n_chips, cp)
+    slot_b = jax.lax.broadcasted_iota(jnp.int32, bkl.shape, 1)
+    valid_b = slot_b < bc[:, None]
+    slot_p = jax.lax.broadcasted_iota(jnp.int32, pkl.shape, 1)
+    valid_p = (slot_p < pc[:, None]).reshape(-1)
+
+    # sorted local build table: valid rows form the prefix
+    inv_b = jnp.logical_not(valid_b).astype(jnp.int32).reshape(-1)
+    _, skey, sval = jax.lax.sort(
+        [inv_b, bkl.reshape(-1), bvl.reshape(-1)], num_keys=2)
+    nv = jnp.sum(bc, dtype=jnp.int32)
+    kdt = jnp.dtype(skey.dtype)
+    maxk = (jnp.asarray(jnp.iinfo(kdt).max, kdt)
+            if jnp.issubdtype(kdt, jnp.integer)
+            else jnp.asarray(jnp.inf, kdt))
+    pos_b = jax.lax.broadcasted_iota(jnp.int32, skey.shape, 0)
+    skey = jnp.where(pos_b < nv, skey, maxk)
+
+    # probes sorted by (validity, key, global row id) — the row id is
+    # a KEY so equal-key output order is the documented arrival order,
+    # deterministic across backends
+    inv_p = jnp.logical_not(valid_p).astype(jnp.int32)
+    _, spk, sg, svalid_i = jax.lax.sort(
+        [inv_p, pkl.reshape(-1), pgl.reshape(-1),
+         valid_p.astype(jnp.int32)], num_keys=3)
+    ub = jnp.minimum(jnp.searchsorted(
+        skey, spk, side="right").astype(jnp.int32), nv)
+    lb = jnp.minimum(jnp.searchsorted(
+        skey, spk).astype(jnp.int32), nv)
+    ub = jnp.where(svalid_i > 0, ub, 0)
+    lb = jnp.where(svalid_i > 0, lb, 0)
+    total, pidx, vals = _expand_from_ranges(
+        sg, ub, lb, _val_cols(sval), capacity_out)
+    return (total.reshape(1), pidx, _val_from_cols(vals, bvl.dtype))

@@ -4,7 +4,8 @@ The reference is strictly single-device (`SURVEY.md` §2.3; e.g.
 `clo_sort_abstract.c:333-341` picks device 0 of one context). The mesh layer
 is therefore new-framework territory (BASELINE.json north star): operators
 scale by hash/range-partitioning rows over a 1-D "data" mesh axis, with XLA
-collectives over ICI/DCN replacing the reference's absent distributed backend.
+collectives (NCCL over NVLink on GPUs) replacing the reference's absent
+distributed backend.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def put_sharded(a, mesh: Mesh, axis: str = DATA_AXIS):
     laid out that way.
 
     The passthrough is what makes the distributed operators multi-process
-    (DCN) capable: a global jax.Array spanning several processes cannot be
+    capable: a global jax.Array spanning several processes cannot be
     re-device_put from one process's host data, but arrays built with
     jax.make_array_from_process_local_data (parallel/multiproc.py) already
     carry the right sharding and flow straight through.
@@ -54,6 +55,30 @@ def put_sharded(a, mesh: Mesh, axis: str = DATA_AXIS):
 
 
 import functools
+
+
+@functools.lru_cache(maxsize=None)
+def mesh_program(body, mesh: Mesh, in_specs, out_specs, **static):
+    """jit(shard_map(body)) with `static` bound as keyword arguments.
+
+    Built once per (body, mesh, specs, static values): jax.jit caches
+    compiled code by function object, so an operator that wrapped a fresh
+    closure on every call would re-trace and re-lower every call. Bodies
+    are module-level functions; everything shape- or plan-dependent they
+    need arrives through hashable `static` values.
+    """
+    from jax import shard_map
+    fn = functools.partial(body, **static) if static else body
+    return jax.jit(shard_map(fn, mesh=mesh, in_specs=in_specs,
+                             out_specs=out_specs, check_vma=False))
+
+
+@functools.lru_cache(maxsize=None)
+def replicated_program(body, mesh: Mesh, **static):
+    """jit(body) with a replicated output (readable from every process of
+    a multi-process mesh), built once per (body, mesh, static values)."""
+    fn = functools.partial(body, **static) if static else body
+    return jax.jit(fn, out_shardings=NamedSharding(mesh, P()))
 
 
 @functools.lru_cache(maxsize=None)

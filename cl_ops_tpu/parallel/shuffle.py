@@ -15,7 +15,7 @@ Protocol (each chip, inside shard_map):
      bounds rows per (src chip, dst partition) pair; overflow drops and is
      reported);
   4. `jax.lax.all_to_all` swaps bucket i of chip j with bucket j of chip i
-     over ICI;
+     (NCCL over NVLink on GPUs);
   5. receivers compact their P incoming buckets with the per-bucket counts.
 
 Deterministic: bucket order is fixed by mesh position, not arrival.
@@ -25,10 +25,9 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from cl_ops_tpu.parallel.mesh import DATA_AXIS, put_sharded
+from cl_ops_tpu.parallel.mesh import DATA_AXIS, mesh_program, put_sharded
 
 
 def partition_exchange(data, part_id, mesh: Mesh, *, capacity: int,
@@ -54,45 +53,47 @@ def partition_exchange(data, part_id, mesh: Mesh, *, capacity: int,
     if n % n_chips:
         raise ValueError(f"length {n} not divisible by {n_chips} chips")
 
-    def local_fn(pid, *cols):
-        pid = pid.reshape(-1)
-        cols = tuple(c.reshape(-1) for c in cols)
-        m = pid.shape[0]
-        # Bucket layout: partition p occupies [p*capacity, (p+1)*capacity).
-        # Stable rank within partition = satradix-style local ranking.
-        order = jnp.argsort(pid, stable=True)
-        spid = jnp.take(pid, order)
-        pos = jax.lax.broadcasted_iota(jnp.int32, (m,), 0)
-        part_start = jnp.searchsorted(spid, jnp.arange(
-            n_chips, dtype=spid.dtype)).astype(jnp.int32)
-        rank_in_part = pos - jnp.take(part_start, spid)
-        dest = spid.astype(jnp.int32) * capacity + rank_in_part
-        dest = jnp.where(rank_in_part < capacity, dest,
-                         n_chips * capacity)  # overflow -> dropped
-        counts_all = jnp.zeros((n_chips,), jnp.int32).at[pid].add(
-            jnp.ones_like(pid, jnp.int32), mode="drop")
-        sent = jnp.minimum(counts_all, capacity)
-        dropped = jnp.sum(counts_all - sent)
-
-        outs = []
-        for c in cols:
-            sc = jnp.take(c, order)
-            buf = jnp.zeros((n_chips * capacity,), c.dtype).at[dest].set(
-                sc, mode="drop", unique_indices=True)
-            # all_to_all: split our buckets over chips, gather bucket-for-us
-            buf = buf.reshape(n_chips, capacity)
-            recv = jax.lax.all_to_all(buf, axis, split_axis=0, concat_axis=0,
-                                      tiled=False)
-            outs.append(recv.reshape(-1))
-        recv_counts = jax.lax.all_to_all(sent.reshape(n_chips, 1), axis,
-                                         split_axis=0, concat_axis=0,
-                                         tiled=False).reshape(-1)
-        return (recv_counts, dropped.reshape(1), *outs)
-
-    fn = shard_map(local_fn, mesh=mesh, in_specs=P(axis),
-                   out_specs=(P(axis), P(axis), *([P(axis)] * (1 + len(extra_cols)))),
-                   check_vma=False)
+    out_specs = (P(axis), P(axis), *([P(axis)] * (1 + len(extra_cols))))
+    fn = mesh_program(_local_exchange, mesh, P(axis), out_specs,
+                      n_chips=n_chips, capacity=capacity, axis=axis)
     args = [put_sharded(part_id.astype(jnp.int32), mesh, axis),
             put_sharded(data, mesh, axis)]
     args += [put_sharded(c, mesh, axis) for c in extra_cols]
     return fn(*args)
+
+
+def _local_exchange(pid, *cols, n_chips, capacity, axis):
+    """One chip's bucketing of its rows by partition, then the exchange."""
+    pid = pid.reshape(-1)
+    cols = tuple(c.reshape(-1) for c in cols)
+    m = pid.shape[0]
+    # Bucket layout: partition p occupies [p*capacity, (p+1)*capacity).
+    # Stable rank within partition = satradix-style local ranking.
+    order = jnp.argsort(pid, stable=True)
+    spid = jnp.take(pid, order)
+    pos = jax.lax.broadcasted_iota(jnp.int32, (m,), 0)
+    part_start = jnp.searchsorted(spid, jnp.arange(
+        n_chips, dtype=spid.dtype)).astype(jnp.int32)
+    rank_in_part = pos - jnp.take(part_start, spid)
+    dest = spid.astype(jnp.int32) * capacity + rank_in_part
+    dest = jnp.where(rank_in_part < capacity, dest,
+                     n_chips * capacity)  # overflow -> dropped
+    counts_all = jnp.zeros((n_chips,), jnp.int32).at[pid].add(
+        jnp.ones_like(pid, jnp.int32), mode="drop")
+    sent = jnp.minimum(counts_all, capacity)
+    dropped = jnp.sum(counts_all - sent)
+
+    outs = []
+    for c in cols:
+        sc = jnp.take(c, order)
+        buf = jnp.zeros((n_chips * capacity,), c.dtype).at[dest].set(
+            sc, mode="drop", unique_indices=True)
+        # all_to_all: split our buckets over chips, gather bucket-for-us
+        buf = buf.reshape(n_chips, capacity)
+        recv = jax.lax.all_to_all(buf, axis, split_axis=0, concat_axis=0,
+                                  tiled=False)
+        outs.append(recv.reshape(-1))
+    recv_counts = jax.lax.all_to_all(sent.reshape(n_chips, 1), axis,
+                                     split_axis=0, concat_axis=0,
+                                     tiled=False).reshape(-1)
+    return (recv_counts, dropped.reshape(1), *outs)

@@ -1,9 +1,9 @@
 """Multi-chip sort: hypercube bitonic exchange over the mesh.
 
-The chip-level replay of the framework's block-level bitonic
-(`ops/sort/bitonic_kernels.py`), which itself re-expresses the reference's
-bitonic sorters — three levels of the same network: lanes/sublanes inside a
-VMEM tile, VMEM blocks inside a chip, chips inside a mesh. The reference has
+The chip-level replay of the framework's bitonic network
+(`ops/sort/bitonic.py`), which itself re-expresses the reference's bitonic
+sorters — the same network over rows inside a chip and over chips inside a
+mesh. The reference has
 no distributed analog (SURVEY.md §2.3); this realizes the north star's
 partition-exchange design with XLA collectives as the backend.
 
@@ -24,13 +24,13 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from cl_ops_tpu.ops.sort import keys as keymod
-from cl_ops_tpu.ops.sort.bitonic_kernels import _lex_lt
-from cl_ops_tpu.parallel.mesh import DATA_AXIS, iota_sharded, put_sharded
-from cl_ops_tpu.utils.bits import is_po2, log2_floor
+from cl_ops_tpu.ops.sort.bitonic import lex_lt
+from cl_ops_tpu.parallel.mesh import (DATA_AXIS, iota_sharded, mesh_program,
+                                      put_sharded)
+from cl_ops_tpu.utils.bits import is_po2, log2_floor, nlpo2
 
 
 def _sel(mask, a, b):
@@ -56,33 +56,13 @@ def _local_merge_xla(arrs):
         j = jnp.int32(1) << (jnp.int32(hi) - m)
         p = tuple(jnp.take(x, idx ^ j) for x in a)
         i_low = (idx & j) == 0
-        take_self = i_low == _lex_lt(a, p)
+        take_self = i_low == lex_lt(a, p)
         return _sel(take_self, a, p)
 
     return jax.lax.fori_loop(0, hi + 1, body, arrs)
 
 
-def _local_sort_pallas(arrs, block_rows, interpret):
-    from cl_ops_tpu.ops.sort import bitonic_kernels as bk
-    arrs2d = tuple(a.reshape(-1, bk.LANES) for a in arrs)
-    rows = arrs2d[0].shape[0]
-    out = bk.bitonic_sort_2d(arrs2d, block_rows=min(block_rows, rows),
-                             fused=True, interpret=interpret)
-    return tuple(a.reshape(-1) for a in out)
-
-
-def _local_merge_pallas(arrs, block_rows, interpret):
-    from cl_ops_tpu.ops.sort import bitonic_kernels as bk
-    arrs2d = tuple(a.reshape(-1, bk.LANES) for a in arrs)
-    rows = arrs2d[0].shape[0]
-    out = bk.bitonic_merge_2d(arrs2d, block_rows=min(block_rows, rows),
-                              interpret=interpret)
-    return tuple(a.reshape(-1) for a in out)
-
-
-def dist_sort_i32_cols(cols, mesh: Mesh, *, axis: str = DATA_AXIS,
-                       use_pallas: bool | None = None,
-                       block_rows: int = 1024):
+def dist_sort_i32_cols(cols, mesh: Mesh, *, axis: str = DATA_AXIS):
     """Lexicographic global sort of row-sharded i32 columns (hypercube).
 
     The tuple-level primitive under dist_sort — the distributed sibling of
@@ -95,9 +75,6 @@ def dist_sort_i32_cols(cols, mesh: Mesh, *, axis: str = DATA_AXIS,
     non-po2 shard would silently clamp out of range) with all-lex-max
     sentinel rows that sort to the global tail and are sliced off.
     """
-    if use_pallas is None:
-        from cl_ops_tpu.utils.platform import on_tpu
-        use_pallas = on_tpu()
     n_chips = mesh.shape[axis]
     if not is_po2(n_chips):
         raise ValueError(f"mesh axis size {n_chips} must be a power of 2")
@@ -105,50 +82,10 @@ def dist_sort_i32_cols(cols, mesh: Mesh, *, axis: str = DATA_AXIS,
     if n % n_chips:
         raise ValueError(f"length {n} not divisible by {n_chips} chips")
     shard_n = n // n_chips
-    from cl_ops_tpu.ops.sort import bitonic_kernels as bk
-    from cl_ops_tpu.utils.bits import nlpo2
-    target = nlpo2(shard_n)
-    if use_pallas:
-        target = max(target, bk.MIN_ROWS * bk.LANES)
-    pad = target - shard_n
+    pad = nlpo2(shard_n) - shard_n
 
-    from cl_ops_tpu.utils.platform import pallas_interpret
-    interpret = pallas_interpret()
-
-    def local_fn(*arrs_in):
-        arrs_l = tuple(a.reshape(-1) for a in arrs_in)
-        if pad:
-            mx = jnp.full((pad,), jnp.int32(2 ** 31 - 1))
-            arrs_l = tuple(jnp.concatenate([a, mx]) for a in arrs_l)
-        me = jax.lax.axis_index(axis)
-        if use_pallas:
-            arrs_l = _local_sort_pallas(arrs_l, block_rows, interpret)
-        else:
-            arrs_l = _local_sort_xla(arrs_l)
-        for sk in range(1, log2_floor(n_chips) + 1):
-            k = 1 << sk
-            j = k // 2
-            while j >= 1:
-                perm = [(i, i ^ j) for i in range(n_chips)]
-                recv = tuple(jax.lax.ppermute(a, axis, perm) for a in arrs_l)
-                rrecv = tuple(jnp.flip(a) for a in recv)
-                lt = _lex_lt(arrs_l, rrecv)
-                mn = _sel(lt, arrs_l, rrecv)
-                mx = _sel(lt, rrecv, arrs_l)
-                is_lo = (me & j) == 0
-                asc_blk = (me & k) == 0
-                keep_min = is_lo == asc_blk
-                arrs_l = _sel(keep_min, mn, mx)
-                if use_pallas:
-                    arrs_l = _local_merge_pallas(arrs_l, block_rows,
-                                                 interpret)
-                else:
-                    arrs_l = _local_merge_xla(arrs_l)
-                j //= 2
-        return arrs_l
-
-    fn = shard_map(local_fn, mesh=mesh, in_specs=P(axis), out_specs=P(axis),
-                   check_vma=False)
+    fn = mesh_program(_local_hypercube_sort, mesh, P(axis), P(axis),
+                      n_chips=n_chips, pad=pad, axis=axis)
     out = fn(*(put_sharded(a, mesh, axis) for a in cols))
     if pad:
         # Sentinel rows occupy the global tail of the padded sort; slicing
@@ -166,14 +103,11 @@ def _unpad_fn(n: int, mesh: Mesh, axis: str):
 
 
 def dist_sort(x, mesh: Mesh, values=None, *, axis: str = DATA_AXIS,
-              ascending: bool = True, use_pallas: bool | None = None,
-              block_rows: int = 1024):
+              ascending: bool = True):
     """Sort a row-sharded 1-D array across the mesh.
 
     Returns the globally sorted array with the same sharding (and reordered
-    values if given). Length must divide evenly by the mesh axis size, and
-    the per-chip shard length must be a power of two times 128 when the
-    Pallas local path is used.
+    values if given). Length must divide evenly by the mesh axis size.
     """
     n = x.shape[0]
     limbs = keymod.to_limbs(x)
@@ -189,8 +123,7 @@ def dist_sort(x, mesh: Mesh, values=None, *, axis: str = DATA_AXIS,
     else:
         arrs = tuple(limbs)
 
-    out = dist_sort_i32_cols(arrs, mesh, axis=axis, use_pallas=use_pallas,
-                             block_rows=block_rows)
+    out = dist_sort_i32_cols(arrs, mesh, axis=axis)
 
     out_limbs = list(out[:n_limbs])
     if not ascending:
@@ -202,3 +135,30 @@ def dist_sort(x, mesh: Mesh, values=None, *, axis: str = DATA_AXIS,
     if values is None:
         return sorted_x
     return sorted_x, jnp.take(values, perm_idx)
+
+
+def _local_hypercube_sort(*arrs_in, n_chips, pad, axis):
+    """One chip's part of the hypercube bitonic sort."""
+    arrs_l = tuple(a.reshape(-1) for a in arrs_in)
+    if pad:
+        mx = jnp.full((pad,), jnp.int32(2 ** 31 - 1))
+        arrs_l = tuple(jnp.concatenate([a, mx]) for a in arrs_l)
+    me = jax.lax.axis_index(axis)
+    arrs_l = _local_sort_xla(arrs_l)
+    for sk in range(1, log2_floor(n_chips) + 1):
+        k = 1 << sk
+        j = k // 2
+        while j >= 1:
+            perm = [(i, i ^ j) for i in range(n_chips)]
+            recv = tuple(jax.lax.ppermute(a, axis, perm) for a in arrs_l)
+            rrecv = tuple(jnp.flip(a) for a in recv)
+            lt = lex_lt(arrs_l, rrecv)
+            mn = _sel(lt, arrs_l, rrecv)
+            mx = _sel(lt, rrecv, arrs_l)
+            is_lo = (me & j) == 0
+            asc_blk = (me & k) == 0
+            keep_min = is_lo == asc_blk
+            arrs_l = _sel(keep_min, mn, mx)
+            arrs_l = _local_merge_xla(arrs_l)
+            j //= 2
+    return arrs_l

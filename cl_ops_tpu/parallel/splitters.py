@@ -16,10 +16,9 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from cl_ops_tpu.parallel.mesh import (DATA_AXIS, put_sharded,
+from cl_ops_tpu.parallel.mesh import (DATA_AXIS, mesh_program, put_sharded,
                                       replicated_sum_int)
 from cl_ops_tpu.parallel.shuffle import partition_exchange
 
@@ -176,20 +175,9 @@ def plan_splitters(keys, mesh: Mesh, *, samples_per_chip: int = 256,
     """
     n_chips = mesh.shape[axis]
 
-    def local_fn(k):
-        k = k.reshape(-1)
-        m = k.shape[0]
-        stride = max(m // samples_per_chip, 1)
-        idx = (jnp.arange(samples_per_chip, dtype=jnp.int32) * stride) % m
-        sample = jnp.sort(jnp.take(k, idx))
-        allsamp = jax.lax.all_gather(sample, axis).reshape(-1)
-        allsamp = jnp.sort(allsamp)
-        total = allsamp.shape[0]
-        pick = (jnp.arange(1, n_chips, dtype=jnp.int32) * total) // n_chips
-        return jnp.take(allsamp, pick)
-
-    fn = shard_map(local_fn, mesh=mesh, in_specs=P(axis), out_specs=P(),
-                   check_vma=False)
+    fn = mesh_program(_local_splitters, mesh, P(axis), P(),
+                      n_chips=n_chips, samples_per_chip=samples_per_chip,
+                      axis=axis)
     return fn(put_sharded(keys, mesh, axis))
 
 
@@ -244,21 +232,38 @@ def dist_sort_sample(x, mesh: Mesh, *, capacity_factor: float = 2.0,
         samples_per_chip *= 4  # adaptive re-sample on overflow
         attempt += 1
 
-    def local_fn(c, b):
-        c = c.reshape(-1)
-        b = b.reshape(n_chips, capacity)
-        slot = jax.lax.broadcasted_iota(jnp.int32, b.shape, 1)
-        valid = (slot < c[:, None]).reshape(-1)
-        # Validity as primary sort key (not a key-space sentinel): valid
-        # rows form the sorted prefix for ANY key dtype/value; the trailing
-        # invalid slots are unspecified.
-        inv = jnp.logical_not(valid).astype(jnp.int32)
-        _, sk = jax.lax.sort([inv, b.reshape(-1)], num_keys=2)
-        total = jnp.sum(c, dtype=jnp.int32)
-        return sk, total.reshape(1)
-
-    fn = shard_map(local_fn, mesh=mesh, in_specs=P(axis),
-                   out_specs=(P(axis), P(axis)), check_vma=False)
+    fn = mesh_program(_local_sample_sort, mesh, P(axis), (P(axis), P(axis)),
+                      n_chips=n_chips, capacity=capacity)
     sorted_buf, totals = fn(put_sharded(counts, mesh, axis),
                             put_sharded(buf, mesh, axis))
     return totals, sorted_buf, dropped
+
+
+def _local_splitters(k, *, n_chips, samples_per_chip, axis):
+    """Strided sample of one chip's keys; splitters from the gathered
+    sample (identical on every chip)."""
+    k = k.reshape(-1)
+    m = k.shape[0]
+    stride = max(m // samples_per_chip, 1)
+    idx = (jnp.arange(samples_per_chip, dtype=jnp.int32) * stride) % m
+    sample = jnp.sort(jnp.take(k, idx))
+    allsamp = jax.lax.all_gather(sample, axis).reshape(-1)
+    allsamp = jnp.sort(allsamp)
+    total = allsamp.shape[0]
+    pick = (jnp.arange(1, n_chips, dtype=jnp.int32) * total) // n_chips
+    return jnp.take(allsamp, pick)
+
+
+def _local_sample_sort(c, b, *, n_chips, capacity):
+    """One chip's sort of the rows it received in the range exchange."""
+    c = c.reshape(-1)
+    b = b.reshape(n_chips, capacity)
+    slot = jax.lax.broadcasted_iota(jnp.int32, b.shape, 1)
+    valid = (slot < c[:, None]).reshape(-1)
+    # Validity as primary sort key (not a key-space sentinel): valid
+    # rows form the sorted prefix for ANY key dtype/value; the trailing
+    # invalid slots are unspecified.
+    inv = jnp.logical_not(valid).astype(jnp.int32)
+    _, sk = jax.lax.sort([inv, b.reshape(-1)], num_keys=2)
+    total = jnp.sum(c, dtype=jnp.int32)
+    return sk, total.reshape(1)

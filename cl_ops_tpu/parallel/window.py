@@ -23,13 +23,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from cl_ops_tpu.ops.exec import psort
 from cl_ops_tpu.ops.exec.window import WINDOW_AGGS, _RANK_AGGS
 from cl_ops_tpu.ops.sort import keys as keymod
-from cl_ops_tpu.parallel.mesh import DATA_AXIS, iota_sharded
+from cl_ops_tpu.parallel.mesh import DATA_AXIS, iota_sharded, mesh_program
 from cl_ops_tpu.parallel.scan import dist_scan, dist_segmented_scan
 from cl_ops_tpu.parallel.sort import dist_sort_i32_cols
 
@@ -41,27 +40,26 @@ def _dist_change_flags(limbs, mesh: Mesh, axis: str):
     always flags). The chip boundary is corrected by a ppermute of each
     chip's last row to its successor.
     """
-    n_chips = mesh.shape[axis]
-
-    def local_fn(*ls):
-        ls = tuple(c.reshape(-1) for c in ls)
-        n_l = ls[0].shape[0]
-        me = jax.lax.axis_index(axis)
-        new = jnp.zeros((n_l,), jnp.bool_)
-        diff_first = jnp.zeros((), jnp.bool_)
-        for c in ls:
-            new = new | jnp.concatenate(
-                [jnp.zeros((1,), jnp.bool_), c[1:] != c[:-1]])
-            prev_last = jax.lax.ppermute(
-                c[-1:], axis, perm=[(i, i + 1) for i in range(n_chips - 1)])
-            diff_first = diff_first | (c[0] != prev_last[0])
-        first = (me == 0) | diff_first
-        idx0 = jax.lax.broadcasted_iota(jnp.int32, (n_l,), 0) == 0
-        return jnp.where(idx0, first, new).astype(jnp.int32)
-
-    fn = shard_map(local_fn, mesh=mesh, in_specs=P(axis), out_specs=P(axis),
-                   check_vma=False)
+    fn = mesh_program(_local_change_flags, mesh, P(axis), P(axis),
+                      n_chips=mesh.shape[axis], axis=axis)
     return fn(*limbs)
+
+
+def _local_change_flags(*ls, n_chips, axis):
+    ls = tuple(c.reshape(-1) for c in ls)
+    n_l = ls[0].shape[0]
+    me = jax.lax.axis_index(axis)
+    new = jnp.zeros((n_l,), jnp.bool_)
+    diff_first = jnp.zeros((), jnp.bool_)
+    for c in ls:
+        new = new | jnp.concatenate(
+            [jnp.zeros((1,), jnp.bool_), c[1:] != c[:-1]])
+        prev_last = jax.lax.ppermute(
+            c[-1:], axis, perm=[(i, i + 1) for i in range(n_chips - 1)])
+        diff_first = diff_first | (c[0] != prev_last[0])
+    first = (me == 0) | diff_first
+    idx0 = jax.lax.broadcasted_iota(jnp.int32, (n_l,), 0) == 0
+    return jnp.where(idx0, first, new).astype(jnp.int32)
 
 
 def _dist_roll(cols, mesh: Mesh, axis: str, shift: int):
@@ -71,33 +69,29 @@ def _dist_roll(cols, mesh: Mesh, axis: str, shift: int):
     mask edges); shift=-1: out[i] = col[i+1] (last row zeros). The
     boundary row crosses chips via ppermute.
     """
-    n_chips = mesh.shape[axis]
-
-    def local_fn(*cs):
-        outs = []
-        for c in cs:
-            c = c.reshape(-1)
-            if shift == 1:
-                b = jax.lax.ppermute(
-                    c[-1:], axis,
-                    perm=[(i, i + 1) for i in range(n_chips - 1)])
-                outs.append(jnp.concatenate([b, c[:-1]]))
-            else:
-                b = jax.lax.ppermute(
-                    c[:1], axis,
-                    perm=[(i + 1, i) for i in range(n_chips - 1)])
-                outs.append(jnp.concatenate([c[1:], b]))
-        return tuple(outs)
-
-    fn = shard_map(local_fn, mesh=mesh, in_specs=P(axis), out_specs=P(axis),
-                   check_vma=False)
+    fn = mesh_program(_local_roll, mesh, P(axis), P(axis),
+                      n_chips=mesh.shape[axis], axis=axis, shift=shift)
     return fn(*cols)
+
+
+def _local_roll(*cs, n_chips, axis, shift):
+    outs = []
+    for c in cs:
+        c = c.reshape(-1)
+        if shift == 1:
+            b = jax.lax.ppermute(
+                c[-1:], axis, perm=[(i, i + 1) for i in range(n_chips - 1)])
+            outs.append(jnp.concatenate([b, c[:-1]]))
+        else:
+            b = jax.lax.ppermute(
+                c[:1], axis, perm=[(i + 1, i) for i in range(n_chips - 1)])
+            outs.append(jnp.concatenate([c[1:], b]))
+    return tuple(outs)
 
 
 def dist_window_cols(keys, order, values, aggs, mesh: Mesh, *,
                      exclusive: bool = False, axis: str = DATA_AXIS,
-                     use_pallas: bool | None = None,
-                     sorted_output: bool = False, block_rows: int = 1024):
+                     sorted_output: bool = False):
     """Window columns over row-sharded inputs (see ops/exec/window.py).
 
     Args mirror window_cols; all 1-D inputs are row-sharded over
@@ -120,10 +114,6 @@ def dist_window_cols(keys, order, values, aggs, mesh: Mesh, *,
             raise ValueError(f"agg {a!r} needs a measure column")
     if order is None and any(a in ("rank", "dense_rank") for a in aggs):
         raise ValueError("rank/dense_rank require an order column")
-    if use_pallas is None:
-        from cl_ops_tpu.utils.platform import on_tpu
-        use_pallas = on_tpu()
-
     n = keys.shape[0]
     kl = keymod.to_limbs(keys)
     ol = keymod.to_limbs(order) if order is not None else ()
@@ -138,8 +128,7 @@ def dist_window_cols(keys, order, values, aggs, mesh: Mesh, *,
     enc, spec = psort.cols_to_i32(tuple(uniq)) if uniq else ((), ())
 
     cols = (*kl, *ol, pos, *enc)
-    out = dist_sort_i32_cols(cols, mesh, axis=axis, use_pallas=use_pallas,
-                             block_rows=block_rows)
+    out = dist_sort_i32_cols(cols, mesh, axis=axis)
     skl = out[:len(kl)]
     sol = out[len(kl):len(kl) + len(ol)]
     row_src = out[len(kl) + len(ol)]
@@ -156,8 +145,7 @@ def dist_window_cols(keys, order, values, aggs, mesh: Mesh, *,
     gidx = iota_sharded(n, mesh, axis)
 
     def seg(x, fl, **kw):
-        return dist_segmented_scan(x, fl, mesh, axis=axis,
-                                   use_pallas=use_pallas, **kw)
+        return dist_segmented_scan(x, fl, mesh, axis=axis, **kw)
 
     results = []
     rownum = None
@@ -185,8 +173,7 @@ def dist_window_cols(keys, order, values, aggs, mesh: Mesh, *,
         if a in ("lag", "lead"):
             if seg_id is None:
                 seg_id = dist_scan(flags, mesh, sum_dtype=jnp.int32,
-                                   exclusive=False, axis=axis,
-                                   use_pallas=use_pallas)
+                                   exclusive=False, axis=axis)
             shift = 1 if a == "lag" else -1
             shifted, rolled_seg = _dist_roll((sv, seg_id), mesh, axis,
                                              shift)
@@ -213,19 +200,16 @@ def dist_window_cols(keys, order, values, aggs, mesh: Mesh, *,
     # Batched restore: one global sort keyed by the unique source position
     # brings every output column home together.
     renc, rspec = psort.cols_to_i32(tuple(results))
-    rout = dist_sort_i32_cols((row_src, *renc), mesh, axis=axis,
-                              use_pallas=use_pallas, block_rows=block_rows)
+    rout = dist_sort_i32_cols((row_src, *renc), mesh, axis=axis)
     return psort.cols_from_i32(rout[1:], rspec)
 
 
 def dist_window_scan(keys, values, mesh: Mesh, order=None, *, agg="sum",
                      exclusive: bool = False, axis: str = DATA_AXIS,
-                     use_pallas: bool | None = None,
                      sorted_output: bool = False):
     """Single-measure distributed window aggregate (see dist_window_cols)."""
     out = dist_window_cols(keys, order, (values,), (agg,), mesh,
                            exclusive=exclusive, axis=axis,
-                           use_pallas=use_pallas,
                            sorted_output=sorted_output)
     if sorted_output:
         return out[0][0], out[1]

@@ -3,7 +3,7 @@
 Parity with the reference's event-profiling discipline (SURVEY.md §5): the
 reference names every enqueued kernel event (`ccl_event_set_name`, e.g.
 `clo_scan_blelloch.c:158,183,193`) and aggregates per-kernel durations with
-`ccl_prof` (`clo_sort_bench.c:201-208`). The TPU analogs:
+`ccl_prof` (`clo_sort_bench.c:201-208`). The JAX analogs:
 
   * `named(name)` — `jax.named_scope` context so kernels show up labeled in
     XLA/jax.profiler traces (the event-naming discipline);

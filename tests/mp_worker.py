@@ -1,4 +1,4 @@
-"""Multi-process DCN-simulation worker: one simulated host.
+"""Multi-process simulation worker: one simulated host.
 
 Spawned by tests/test_multiproc.py (and runnable by hand):
     python tests/mp_worker.py <pid> <nproc> <port>
@@ -30,22 +30,22 @@ def main(pid: int, nproc: int, port: int) -> None:
     n = n_chips * 512
     lo, hi = pid * (n // nproc), (pid + 1) * (n // nproc)
 
-    # --- dist_scan across processes (all_gather carry crosses DCN)
+    # --- dist_scan across processes (all_gather carry crosses processes)
     x = np.random.RandomState(1).randint(0, 1000, size=n).astype(np.uint32)
     gx = multiproc.from_process_local(x[lo:hi], mesh)
-    out = parallel.dist_scan(gx, mesh, sum_dtype=np.uint64, use_pallas=False)
+    out = parallel.dist_scan(gx, mesh, sum_dtype=np.uint64)
     expect = (np.cumsum(x.astype(np.uint64)) - x)[lo:hi]
     np.testing.assert_array_equal(multiproc.local_rows(out), expect)
 
-    # --- dist_sort (hypercube ppermute exchange crosses DCN)
+    # --- dist_sort (hypercube ppermute exchange crosses processes)
     k = np.random.RandomState(2).randint(
         0, 1 << 31, size=n, dtype=np.int64).astype(np.uint32)
     gk = multiproc.from_process_local(k[lo:hi], mesh)
-    sorted_k = parallel.dist_sort(gk, mesh, use_pallas=False)
+    sorted_k = parallel.dist_sort(gk, mesh)
     np.testing.assert_array_equal(multiproc.local_rows(sorted_k),
                                   np.sort(k)[lo:hi])
 
-    # --- dist_group_aggregate (all_to_all partition exchange crosses DCN)
+    # --- dist_group_aggregate (all_to_all partition exchange crosses processes)
     keys = np.random.RandomState(3).randint(0, 97, size=n).astype(np.uint32)
     vals = np.random.RandomState(4).randint(0, 50, size=n).astype(np.int32)
     gkeys = multiproc.from_process_local(keys[lo:hi], mesh)
@@ -126,12 +126,12 @@ def main(pid: int, nproc: int, port: int) -> None:
     assert sorted(got) == sorted(expect_pairs)
 
     # --- distributed window functions across processes: the global sort's
-    # compare-split ppermutes AND the segmented-scan carries cross DCN
+    # compare-split ppermutes AND the segmented-scan carries cross processes
     wkeys = (keys % 5).astype(np.uint32)
     gwk = multiproc.from_process_local(wkeys[lo:hi], mesh)
     worder = multiproc.from_process_local(vals[lo:hi], mesh)
     (wsum,) = parallel.dist_window_cols(gwk, worder, (worder,), ("sum",),
-                                        mesh, use_pallas=False)
+                                        mesh)
     # serial oracle: running sum per (key) partition in (order, pos) order
     osum = np.zeros(n, np.int64)
     for u in np.unique(wkeys):
@@ -141,12 +141,11 @@ def main(pid: int, nproc: int, port: int) -> None:
     np.testing.assert_array_equal(
         multiproc.local_rows(wsum).astype(np.int64), osum[lo:hi])
 
-    # --- distributed top-k and distinct (candidate merges cross DCN)
+    # --- distributed top-k and distinct (candidate merges cross processes)
     gk3 = multiproc.from_process_local(k[lo:hi], mesh)
-    tvals, = parallel.dist_top_k(gk3, 8, mesh, use_pallas=False)
+    tvals, = parallel.dist_top_k(gk3, 8, mesh)
     np.testing.assert_array_equal(np.asarray(tvals), np.sort(k)[:8])
-    uq, ucnt = parallel.dist_distinct(gwk, mesh, capacity=16,
-                                      use_pallas=False)
+    uq, ucnt = parallel.dist_distinct(gwk, mesh, capacity=16)
     assert int(np.asarray(ucnt)) == len(np.unique(wkeys))
 
     print(f"MP_OK_{pid}", flush=True)

@@ -12,7 +12,7 @@ def test_filter_compact():
     rng = np.random.RandomState(0)
     x = rng.randint(0, 1000, size=5000).astype(np.int32)
     pred = lambda d: (d % 10) == 0  # noqa: E731
-    count, packed = ex.filter_compact(jnp.asarray(x), pred, use_pallas=False)
+    count, packed = ex.filter_compact(jnp.asarray(x), pred)
     keep = x[(x % 10) == 0]
     assert int(count) == len(keep)
     np.testing.assert_array_equal(np.asarray(packed)[:int(count)], keep)
@@ -23,8 +23,7 @@ def test_filter_compact_extra_cols():
     x = rng.randint(0, 100, size=2000).astype(np.int32)
     v = np.arange(2000, dtype=np.float32)
     pred = lambda d: d < 10  # noqa: E731
-    count, px, pv = ex.filter_compact(jnp.asarray(x), pred, jnp.asarray(v),
-                                      use_pallas=False)
+    count, px, pv = ex.filter_compact(jnp.asarray(x), pred, jnp.asarray(v))
     m = x < 10
     assert int(count) == m.sum()
     np.testing.assert_array_equal(np.asarray(px)[:int(count)], x[m])
@@ -35,7 +34,7 @@ def test_filter_pallas_path():
     rng = np.random.RandomState(2)
     x = rng.randint(0, 100, size=3000).astype(np.int32)
     pred = lambda d: d >= 50  # noqa: E731
-    count, packed = ex.filter_compact(jnp.asarray(x), pred, use_pallas=True)
+    count, packed = ex.filter_compact(jnp.asarray(x), pred)
     keep = x[x >= 50]
     assert int(count) == len(keep)
     np.testing.assert_array_equal(np.asarray(packed)[:int(count)], keep)
@@ -105,13 +104,12 @@ def test_hash_u32_range():
 
 
 def test_filter_pallas_extra_cols_float():
-    """Pallas compaction path with a float payload column."""
+    """Compaction with a float payload column."""
     rng = np.random.RandomState(6)
     x = rng.randint(0, 100, size=1500).astype(np.int32)
     v = rng.randn(1500).astype(np.float32)
     pred = lambda d: d % 3 == 0  # noqa: E731
-    count, px, pv = ex.filter_compact(jnp.asarray(x), pred, jnp.asarray(v),
-                                      use_pallas=True)
+    count, px, pv = ex.filter_compact(jnp.asarray(x), pred, jnp.asarray(v))
     m = x % 3 == 0
     assert int(count) == m.sum()
     np.testing.assert_array_equal(np.asarray(px)[:int(count)], x[m])
@@ -119,16 +117,16 @@ def test_filter_pallas_extra_cols_float():
 
 
 @pytest.mark.parametrize("agg", ["sum", "count", "min", "max", "mean"])
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_group_aggregate_sorted_all_aggs(agg, use_pallas):
-    """Unified gather path: every agg via sort-by-(key,value)."""
+@pytest.mark.parametrize("n", [1200, 6000])
+def test_group_aggregate_sorted_all_aggs(agg, n):
+    """Every agg; n=1200 takes the dense-groups end form, n=6000 the
+    two-level search over more than one 4096-row block."""
     rng = np.random.RandomState(7)
-    keys = rng.randint(0, 40, size=1200).astype(np.uint32)
-    vals = rng.randint(-50, 50, size=1200).astype(np.int32)
+    keys = rng.randint(0, 40, size=n).astype(np.uint32)
+    vals = rng.randint(-50, 50, size=n).astype(np.int32)
     vv = vals.astype(np.float32) if agg == "mean" else vals
     gkeys, table, count = ex.group_aggregate_sorted(
-        jnp.asarray(keys), jnp.asarray(vv), num_groups=64, agg=agg,
-        use_pallas=use_pallas)
+        jnp.asarray(keys), jnp.asarray(vv), num_groups=64, agg=agg)
     uniq = np.unique(keys)
     assert int(count) == len(uniq)
     np.testing.assert_array_equal(np.asarray(gkeys)[:len(uniq)], uniq)
@@ -140,7 +138,7 @@ def test_group_aggregate_sorted_all_aggs(agg, use_pallas):
 
 
 def test_group_aggregate_sorted_u64_keys():
-    """64-bit keys ride two limbs through the Pallas column sort."""
+    """64-bit keys ride two limbs through the column sort."""
     rng = np.random.RandomState(8)
     base = rng.randint(0, 1 << 62, size=12, dtype=np.uint64) * 4
     base[0] = np.uint64(2**64 - 1)  # top-bit key exercises high-limb flip
@@ -155,8 +153,8 @@ def test_group_aggregate_sorted_u64_keys():
     np.testing.assert_array_equal(np.asarray(table)[:len(uniq)], expect)
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_hash_join_paths(use_pallas):
+@pytest.mark.parametrize("probe_impl", ["direct", "merge"])
+def test_hash_join_paths(probe_impl):
     rng = np.random.RandomState(9)
     dim_keys = np.unique(rng.randint(0, 1 << 16, size=300).astype(np.uint32))
     dim_vals = (dim_keys * 13 + 5).astype(np.uint32)
@@ -167,7 +165,7 @@ def test_hash_join_paths(use_pallas):
     rng.shuffle(fact)
     found, vals = ex.hash_join(jnp.asarray(dim_keys[perm]),
                                jnp.asarray(dim_vals[perm]),
-                               jnp.asarray(fact), use_pallas=use_pallas)
+                               jnp.asarray(fact), probe_impl=probe_impl)
     found, vals = np.asarray(found), np.asarray(vals)
     expect = np.isin(fact, dim_keys)
     np.testing.assert_array_equal(found, expect)
@@ -175,7 +173,7 @@ def test_hash_join_paths(use_pallas):
 
 
 def test_hash_join_float_vals_pallas():
-    """4-byte float build values ride the probe sorts bitcast."""
+    """4-byte float build values ride the probe as bitcast columns."""
     rng = np.random.RandomState(10)
     dim_keys = np.arange(64, dtype=np.uint32)
     dim_vals = rng.randn(64).astype(np.float32)
@@ -187,8 +185,8 @@ def test_hash_join_float_vals_pallas():
     np.testing.assert_array_equal(vals[found], dim_vals[fact[found]])
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_hash_join_non_unique(use_pallas):
+@pytest.mark.parametrize("probe_impl", ["direct", "merge"])
+def test_hash_join_non_unique(probe_impl):
     """Duplicate build keys: (match_count, first_val in sorted order)."""
     rng = np.random.RandomState(12)
     build = rng.randint(0, 64, size=500).astype(np.uint32)
@@ -196,7 +194,7 @@ def test_hash_join_non_unique(use_pallas):
     probe = rng.randint(0, 80, size=700).astype(np.uint32)
     count, fv = ex.hash_join(jnp.asarray(build), jnp.asarray(bvals),
                              jnp.asarray(probe), unique_build=False,
-                             use_pallas=use_pallas)
+                             probe_impl=probe_impl)
     count, fv = np.asarray(count), np.asarray(fv)
     order = np.argsort(build, kind="stable")
     sb, sv = build[order], bvals[order]
@@ -234,7 +232,7 @@ def test_hash_join_semi_anti(jt, expect_fn):
 
 
 def test_hash_join_u64_keys():
-    """64-bit keys ride two limbs through the Pallas probe."""
+    """64-bit keys ride two limbs through the probe."""
     rng = np.random.RandomState(14)
     dim = np.unique((rng.randint(0, 1 << 30, size=100).astype(np.uint64)
                      << np.uint64(33)) | np.uint64(1))
@@ -254,8 +252,8 @@ def test_hash_join_u64_keys():
         assert vals[i] == lut[int(probe[i])]
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_group_aggregate_prefix(use_pallas):
+@pytest.mark.parametrize("key_bits", [None, 5])
+def test_group_aggregate_prefix(key_bits):
     """Aggregate only the valid prefix (filter_compact composition)."""
     rng = np.random.RandomState(15)
     keys = rng.randint(0, 20, size=1000).astype(np.int32)
@@ -263,7 +261,7 @@ def test_group_aggregate_prefix(use_pallas):
     n_valid = 617
     gk, table, cnt = ex.group_aggregate_prefix(
         jnp.asarray(keys), jnp.asarray(vals), jnp.asarray(n_valid),
-        num_groups=32, agg="sum", use_pallas=use_pallas)
+        num_groups=32, agg="sum", key_bits=key_bits)
     kv, vv = keys[:n_valid], vals[:n_valid]
     uniq = np.unique(kv)
     assert int(cnt) == len(uniq)
@@ -273,22 +271,22 @@ def test_group_aggregate_prefix(use_pallas):
         [vv[kv == k].sum() for k in uniq])
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_group_aggregate_cols(use_pallas):
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.int64])
+def test_group_aggregate_cols(key_dtype):
     """Multi-measure GROUP BY (the TPC-H Q1 shape): one input sort, every
     agg on two measure columns against the numpy oracle. Column 0 rides
     the key order (min = boundary gather); column 2's max exercises the
     per-column (group_id, value) sort path."""
     rng = np.random.RandomState(70)
     n = 1 << 12
-    keys = rng.randint(0, 200, size=n).astype(np.uint32)
+    keys = rng.randint(0, 200, size=n).astype(key_dtype)
     v1 = rng.randint(-50, 50, size=n).astype(np.int32)
     v2 = rng.randint(0, 1000, size=n).astype(np.uint32)
     a = (jnp.asarray(v1), jnp.asarray(v1), jnp.asarray(v2),
          jnp.asarray(v2), jnp.asarray(v2))
     gk, (mn1, s1, mx2, c2, mean2), cnt = ex.group_aggregate_cols(
         jnp.asarray(keys), a, ("min", "sum", "max", "count", "mean"),
-        num_groups=256, use_pallas=use_pallas)
+        num_groups=256)
     uk = np.unique(keys)
     assert int(cnt) == len(uk)
     np.testing.assert_array_equal(np.asarray(gk)[:len(uk)], uk)
@@ -315,8 +313,7 @@ def test_group_aggregate_cols_prefix_sorted_and_errors():
     n_valid = 617
     gk, (s1, mx2), cnt = ex.group_aggregate_cols(
         jnp.asarray(keys), (jnp.asarray(v1), jnp.asarray(v2)),
-        ("sum", "max"), num_groups=64, n_valid=jnp.asarray(n_valid),
-        use_pallas=False)
+        ("sum", "max"), num_groups=64, n_valid=jnp.asarray(n_valid))
     kv = keys[:n_valid]
     uk = np.unique(kv)
     assert int(cnt) == len(uk)
@@ -328,8 +325,7 @@ def test_group_aggregate_cols_prefix_sorted_and_errors():
     # keys_sorted fusion path, whole call under jax.jit
     order = np.argsort(keys, kind="stable")
     fn = jax.jit(lambda k, a, b: ex.group_aggregate_cols(
-        k, (a, b), ("sum", "min"), num_groups=64, keys_sorted=True,
-        use_pallas=False))
+        k, (a, b), ("sum", "min"), num_groups=64, keys_sorted=True))
     gk2, (s2, mn2), cnt2 = fn(jnp.asarray(keys[order]),
                               jnp.asarray(v1[order]),
                               jnp.asarray(v2[order]))
@@ -356,8 +352,8 @@ def test_group_aggregate_cols_prefix_sorted_and_errors():
     assert int(cnt3) == 0 and tbls[0].shape == (8,)
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_group_aggregate_cols_valid_mask(use_pallas):
+@pytest.mark.parametrize("key_dtype", [np.int32, np.uint64])
+def test_group_aggregate_cols_valid_mask(key_dtype):
     """The fused WHERE + GROUP BY form: the boolean mask rides as the
     leading sort column, so a filtered multi-measure aggregate pays no
     separate filter_compact partition. min/max on non-first columns
@@ -366,7 +362,7 @@ def test_group_aggregate_cols_valid_mask(use_pallas):
     sort path)."""
     rng = np.random.RandomState(72)
     n = 4000
-    keys = rng.randint(0, 50, size=n).astype(np.int32)
+    keys = rng.randint(0, 50, size=n).astype(key_dtype)
     v1 = rng.randint(-900, 900, size=n).astype(np.int32)
     v2 = (rng.randint(0, 1 << 32, size=n, dtype=np.uint64)
           .astype(np.uint32))
@@ -376,8 +372,7 @@ def test_group_aggregate_cols_valid_mask(use_pallas):
     a = tuple(jnp.asarray(v) for v in (v1, v1, v2, v2, v3, v4))
     gk, (s1, mn1, mx2, mean2, mn3, mx4), cnt = ex.group_aggregate_cols(
         jnp.asarray(keys), a, ("sum", "min", "max", "mean", "min", "max"),
-        num_groups=64, valid_mask=jnp.asarray(mask),
-        use_pallas=use_pallas)
+        num_groups=64, valid_mask=jnp.asarray(mask))
     uk = np.unique(keys[mask])
     assert int(cnt) == len(uk)
     np.testing.assert_array_equal(np.asarray(gk)[:len(uk)], uk)
@@ -399,14 +394,13 @@ def test_group_aggregate_cols_valid_mask(use_pallas):
             n_valid=jnp.asarray(5), valid_mask=jnp.asarray(mask))
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_group_aggregate_cols_key_bits(use_pallas):
+@pytest.mark.parametrize("n", [5000, 777])
+def test_group_aggregate_cols_key_bits(n):
     """key_bits WHERE-fusion packing: the validity bit rides above the
     key in one i32 sort column (caller contract: 0 <= key < 2^key_bits).
     Must match the unpacked form exactly, including keys AT the contract
     edge (2^key_bits - 1) and non-power-of-two row counts."""
     rng = np.random.RandomState(91)
-    n = 5000
     keys = rng.randint(0, 128, size=n).astype(np.uint32)
     keys[:17] = 127  # contract-edge keys present and valid
     qty = rng.randint(-500, 500, size=n).astype(np.int32)
@@ -415,8 +409,7 @@ def test_group_aggregate_cols_key_bits(use_pallas):
     args = (jnp.asarray(keys),
             (jnp.asarray(qty), jnp.asarray(price), jnp.asarray(qty)),
             ("sum", "max", "min"))
-    kw = dict(num_groups=256, valid_mask=jnp.asarray(mask),
-              use_pallas=use_pallas)
+    kw = dict(num_groups=256, valid_mask=jnp.asarray(mask))
     gk_p, t_p, c_p = ex.group_aggregate_cols(*args, key_bits=7, **kw)
     gk_u, t_u, c_u = ex.group_aggregate_cols(*args, **kw)
     assert int(c_p) == int(c_u)
@@ -427,13 +420,13 @@ def test_group_aggregate_cols_key_bits(use_pallas):
         np.testing.assert_array_equal(np.asarray(a)[:cnt],
                                       np.asarray(b)[:cnt])
     # n_valid form too
-    nv = jnp.int32(3000)
+    nv = jnp.int32(n * 3 // 5)
     g2p = ex.group_aggregate_cols(
         jnp.asarray(keys), (jnp.asarray(qty),), ("sum",), num_groups=256,
-        n_valid=nv, key_bits=7, use_pallas=use_pallas)
+        n_valid=nv, key_bits=7)
     g2u = ex.group_aggregate_cols(
         jnp.asarray(keys), (jnp.asarray(qty),), ("sum",), num_groups=256,
-        n_valid=nv, use_pallas=use_pallas)
+        n_valid=nv)
     assert int(g2p[2]) == int(g2u[2])
     np.testing.assert_array_equal(np.asarray(g2p[1][0])[:int(g2p[2])],
                                   np.asarray(g2u[1][0])[:int(g2u[2])])
@@ -449,39 +442,36 @@ def test_group_aggregate_cols_key_bits(use_pallas):
             key_bits=7)
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_group_aggregate_dense_cols(use_pallas):
+@pytest.mark.parametrize("G", [37, 200])
+def test_group_aggregate_dense_cols(G):
     """Sort-free dense small-G aggregate: bit parity with the sorted path
     on every agg (wrapping i32 sums, u32 order, f32 min/max, masked rows,
-    out-of-range ids dropped), in both the unrolled (G<=128) and traced
-    (G>128) kernel forms."""
+    out-of-range ids dropped)."""
     rng = np.random.RandomState(73)
     n = 30000
-    for G in (37, 200):
-        gid = rng.randint(-2, G + 2, n).astype(np.int32)
-        v1 = rng.randint(-900, 900, n).astype(np.int32)
-        v2 = (rng.randint(0, 1 << 32, n, dtype=np.int64)
-              & 0xFFFFFFFF).astype(np.uint32)
-        v3 = rng.randn(n).astype(np.float32)
-        mask = v1 < 300
-        gk, (s1, mn1, mx2, c, mn3), cnt = ex.group_aggregate_dense_cols(
-            jnp.asarray(gid),
-            tuple(jnp.asarray(x) for x in (v1, v1, v2, v1, v3)),
-            ("sum", "min", "max", "count", "min"),
-            num_groups=G, valid_mask=jnp.asarray(mask),
-            use_pallas=use_pallas)
-        ok = mask & (gid >= 0) & (gid < G)
-        present = np.unique(gid[ok])
-        cnt = int(cnt)
-        assert cnt == len(present)
-        np.testing.assert_array_equal(np.asarray(gk)[:cnt], present)
-        for i, g in enumerate(present):
-            m = ok & (gid == g)
-            assert int(s1[i]) == int(np.int32(v1[m].sum()))
-            assert int(mn1[i]) == int(v1[m].min())
-            assert int(mx2[i]) == int(v2[m].max())
-            assert int(c[i]) == int(m.sum())
-            assert float(mn3[i]) == float(v3[m].min())
+    gid = rng.randint(-2, G + 2, n).astype(np.int32)
+    v1 = rng.randint(-900, 900, n).astype(np.int32)
+    v2 = (rng.randint(0, 1 << 32, n, dtype=np.int64)
+          & 0xFFFFFFFF).astype(np.uint32)
+    v3 = rng.randn(n).astype(np.float32)
+    mask = v1 < 300
+    gk, (s1, mn1, mx2, c, mn3), cnt = ex.group_aggregate_dense_cols(
+        jnp.asarray(gid),
+        tuple(jnp.asarray(x) for x in (v1, v1, v2, v1, v3)),
+        ("sum", "min", "max", "count", "min"),
+        num_groups=G, valid_mask=jnp.asarray(mask))
+    ok = mask & (gid >= 0) & (gid < G)
+    present = np.unique(gid[ok])
+    cnt = int(cnt)
+    assert cnt == len(present)
+    np.testing.assert_array_equal(np.asarray(gk)[:cnt], present)
+    for i, g in enumerate(present):
+        m = ok & (gid == g)
+        assert int(s1[i]) == int(np.int32(v1[m].sum()))
+        assert int(mn1[i]) == int(v1[m].min())
+        assert int(mx2[i]) == int(v2[m].max())
+        assert int(c[i]) == int(m.sum())
+        assert float(mn3[i]) == float(v3[m].min())
     with pytest.raises(ValueError, match="order-dependent"):
         ex.group_aggregate_dense_cols(
             jnp.asarray(gid), (jnp.asarray(v3),), ("sum",), num_groups=8)
@@ -491,7 +481,7 @@ def test_group_aggregate_dense_cols(use_pallas):
             ("max",), num_groups=8)
 
 
-@pytest.mark.parametrize("probe_impl", ["direct", "banded", "merge"])
+@pytest.mark.parametrize("probe_impl", ["auto", "direct", "merge"])
 def test_hash_join_probe_impls(probe_impl):
     """All probe strategies agree with the oracle on the same data."""
     rng = np.random.RandomState(21)
@@ -511,30 +501,29 @@ def test_hash_join_probe_impls(probe_impl):
                                   (probe[expect] * 3 + 7).astype(np.int32))
 
 
-def test_bandprobe_direct_searchsorted_parity():
-    """probe_direct == np.searchsorted(side='right') + match gathers."""
-    from cl_ops_tpu.ops.exec import bandprobe
+def test_search_build_searchsorted_parity():
+    """search_build == np.searchsorted(side='right') + match gathers."""
+    from cl_ops_tpu.ops.exec.probe import search_build
     rng = np.random.RandomState(22)
     build = np.sort(rng.randint(0, 1 << 31, size=700).astype(np.int32))
     nb = len(build)
     vals = (np.arange(nb) * 5 + 2).astype(np.int32)
     probe = rng.randint(0, 1 << 31, size=3000).astype(np.int32)
     probe[:40] = build[rng.randint(0, nb, size=40)]
-    probe[40] = 0x7FFFFFFF  # key == pad sentinel: realness tie-break case
-    count, eq, vp, vn = bandprobe.probe_direct(
-        (jnp.asarray(build),), jnp.asarray(vals), (jnp.asarray(probe),),
-        interpret=True)
+    probe[40] = 0x7FFFFFFF  # the i32 maximum
+    probe[41] = -0x80000000  # the i32 minimum
+    count, eq, (vp,), (vn,) = search_build(
+        (jnp.asarray(build),), (jnp.asarray(vals),), (jnp.asarray(probe),))
     count, eq, vp, vn = (np.asarray(a) for a in (count, eq, vp, vn))
     exp_count = np.searchsorted(build, probe, side="right")
     np.testing.assert_array_equal(count, exp_count)
     np.testing.assert_array_equal(eq, np.isin(probe, build))
     np.testing.assert_array_equal(vp, vals[np.maximum(count - 1, 0)])
-    live = count < nb  # vn is undefined at count == nb
-    np.testing.assert_array_equal(vn[live], vals[count[live]])
+    np.testing.assert_array_equal(vn, vals[np.minimum(count, nb - 1)])
 
 
-def test_bandprobe_direct_two_limbs():
-    from cl_ops_tpu.ops.exec import bandprobe
+def test_search_build_two_limbs():
+    from cl_ops_tpu.ops.exec.probe import search_build
     rng = np.random.RandomState(23)
     hi = rng.randint(-5, 5, size=400).astype(np.int32)
     lo = rng.randint(-9, 9, size=400).astype(np.int32)
@@ -543,10 +532,9 @@ def test_bandprobe_direct_two_limbs():
     v = np.arange(nb, dtype=np.int32)
     ph = rng.randint(-6, 6, size=1500).astype(np.int32)
     plo = rng.randint(-10, 10, size=1500).astype(np.int32)
-    count, eq, vp, _ = bandprobe.probe_direct(
+    count, eq, _, _ = search_build(
         (jnp.asarray(pairs[:, 0]), jnp.asarray(pairs[:, 1])),
-        jnp.asarray(v), (jnp.asarray(ph), jnp.asarray(plo)),
-        interpret=True)
+        (jnp.asarray(v),), (jnp.asarray(ph), jnp.asarray(plo)))
     count, eq = np.asarray(count), np.asarray(eq)
     key = pairs[:, 0].astype(np.int64) * 100 + pairs[:, 1]
     pk = ph.astype(np.int64) * 100 + plo
@@ -554,57 +542,20 @@ def test_bandprobe_direct_two_limbs():
     np.testing.assert_array_equal(eq, np.isin(pk, key))
 
 
-@pytest.mark.slow
-def test_bandprobe_banded_sorted_parity():
-    """Large-build banded pass vs searchsorted, incl. window placement.
-
-    Three full probe blocks, each clustered on a narrow slice of the
-    build key range, so every block's build span fits one window (the
-    contract; a block spanning more than PULL*WBE rows must instead
-    trip the overflow flag — see test_bandprobe_overflow_detected)
-    while the three windows land at different starts.
-    """
-    from cl_ops_tpu.ops.exec import bandprobe
-    rng = np.random.RandomState(25)
-    nb = bandprobe.DIRECT_MAX * 3 + 777   # forces multi-window starts
-    build = np.sort(rng.choice(1 << 26, size=nb, replace=False)
-                    .astype(np.int32))
-    vals = (np.arange(nb) * 3 + 1).astype(np.int32)
-    block = bandprobe.PROBE_ROWS * 128
-    lo, mid, hi = (1 << 26) // 4, (1 << 26) // 2, (1 << 26) * 3 // 4
-    probe = np.sort(np.concatenate([
-        rng.randint(0, lo // 2, size=block),
-        rng.randint(mid, mid + lo // 2, size=block),
-        rng.randint(hi, hi + lo // 2, size=block)]).astype(np.int32))
-    count, eq, vp, vn, ovf = bandprobe.probe_banded_sorted(
-        (jnp.asarray(build),), jnp.asarray(vals), (jnp.asarray(probe),),
-        interpret=True)
-    assert not bool(ovf)
-    count, eq, vp, vn = (np.asarray(a) for a in (count, eq, vp, vn))
-    exp = np.searchsorted(build, probe, side="right")
-    np.testing.assert_array_equal(count, exp)
-    np.testing.assert_array_equal(eq, np.isin(probe, build))
-    np.testing.assert_array_equal(vp, vals[np.maximum(count - 1, 0)])
-    live = count < nb
-    np.testing.assert_array_equal(vn[live], vals[count[live]])
+@pytest.mark.parametrize("nb", [1, 2, 3, 4096, 4097])
+def test_search_build_step_count(nb):
+    """The search takes nb.bit_length() halvings: probes at both ends of
+    every build size land exactly (one step short would miss the last
+    candidate)."""
+    from cl_ops_tpu.ops.exec.probe import count_leq
+    build = np.arange(nb, dtype=np.int32) * 2
+    probe = np.array([-1, 0, 1, 2 * nb - 2, 2 * nb - 1, 2 * nb], np.int32)
+    got = np.asarray(count_leq((jnp.asarray(build),), (jnp.asarray(probe),)))
+    np.testing.assert_array_equal(got,
+                                  np.searchsorted(build, probe, "right"))
 
 
-@pytest.mark.slow
-def test_bandprobe_overflow_detected():
-    """A probe block spanning more build rows than one window flags."""
-    from cl_ops_tpu.ops.exec import bandprobe
-    nb = bandprobe.DIRECT_MAX * 4
-    build = np.arange(nb, dtype=np.int32)
-    vals = build.copy()
-    # probes span the whole build inside one 64K block -> must overflow
-    probe = np.linspace(0, nb - 1, 70000).astype(np.int32)
-    *_, ovf = bandprobe.probe_banded_sorted(
-        (jnp.asarray(build),), jnp.asarray(vals),
-        (jnp.asarray(np.sort(probe)),), interpret=True)
-    assert bool(ovf)
-
-
-@pytest.mark.parametrize("probe_impl", ["direct", "banded", "merge"])
+@pytest.mark.parametrize("probe_impl", ["auto", "direct", "merge"])
 def test_hash_join_non_unique_probe_impls(probe_impl):
     rng = np.random.RandomState(24)
     build = rng.randint(0, 64, size=600).astype(np.uint32)
@@ -635,7 +586,7 @@ def _expand_oracle(build, bvals, probe):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("probe_impl", ["direct", "banded", "merge"])
+@pytest.mark.parametrize("probe_impl", ["auto", "direct", "merge"])
 def test_hash_join_expand(probe_impl):
     rng = np.random.RandomState(30)
     build = rng.randint(0, 50, size=300).astype(np.uint32)
@@ -683,7 +634,7 @@ def test_hash_join_expand_xla_fallback():
     probe = rng.randint(0, 50, size=300).astype(np.uint32)
     total, pidx, vals = ex.hash_join_expand(
         jnp.asarray(build), jnp.asarray(bvals), jnp.asarray(probe),
-        capacity=4096, use_pallas=False)
+        capacity=4096, probe_impl="merge")
     exp_pidx, groups = _expand_oracle(build, bvals, probe)
     assert int(total) == len(exp_pidx)
     np.testing.assert_array_equal(np.asarray(pidx)[:int(total)], exp_pidx)
@@ -691,8 +642,7 @@ def test_hash_join_expand_xla_fallback():
 
 @pytest.mark.slow
 def test_hash_join_expand_sparse_fallback():
-    """1-match-per-probe expansion: output blocks span more probes than
-    one band window covers -> overflow -> XLA fallback, same results."""
+    """1-match-per-probe expansion over a 70000-row build."""
     m = 70000
     build = np.arange(m, dtype=np.uint32)
     bvals = (build * 2 + 1).astype(np.int32)
@@ -721,19 +671,18 @@ def test_hash_join_expand_empty_inputs():
                             jnp.asarray(build), capacity=0)
 
 
-def test_bandprobe_multi_value_columns():
-    """Multi-val pass == stacked single-val passes (vp AND vn per col)."""
-    from cl_ops_tpu.ops.exec import bandprobe
+def test_search_build_multi_value_columns():
+    """Several value columns gather at the same bounds (vp AND vn)."""
+    from cl_ops_tpu.ops.exec.probe import search_build
     rng = np.random.RandomState(33)
     build = np.sort(rng.randint(0, 1 << 20, size=500).astype(np.int32))
     nb = len(build)
     v1 = (np.arange(nb) * 3 + 1).astype(np.int32)
-    v2 = (np.arange(nb) * 7 + 2).astype(np.int32)
+    v2 = (np.arange(nb) * 7 + 2).astype(np.uint64)
     probe = np.sort(rng.randint(0, 1 << 20, size=2000).astype(np.int32))
-    count, eq, vps, vns, ovf = bandprobe.probe_banded_sorted(
+    count, eq, vps, vns = search_build(
         (jnp.asarray(build),), (jnp.asarray(v1), jnp.asarray(v2)),
-        (jnp.asarray(probe),), interpret=True)
-    assert not bool(ovf)
+        (jnp.asarray(probe),))
     count = np.asarray(count)
     exp = np.searchsorted(build, probe, side="right")
     np.testing.assert_array_equal(count, exp)
@@ -744,8 +693,8 @@ def test_bandprobe_multi_value_columns():
         np.testing.assert_array_equal(np.asarray(vn)[live], vals[exp[live]])
 
 
-def test_hash_join_u64_keys_banded():
-    """Forced banded strategy on two-limb keys (probe sort + band pass)."""
+def test_hash_join_u64_keys_sorted_output():
+    """Two-limb keys through the sorted-probe form (probe sort + search)."""
     rng = np.random.RandomState(35)
     dim = np.unique((rng.randint(0, 1 << 30, size=200).astype(np.uint64)
                      << np.uint64(33)) | np.uint64(7))
@@ -755,15 +704,16 @@ def test_hash_join_u64_keys_banded():
     probe = np.concatenate([dim[rng.randint(0, len(dim), size=400)],
                             rng.randint(0, 1000, size=80).astype(np.uint64)])
     rng.shuffle(probe)
-    found, vals = ex.hash_join(jnp.asarray(dim), jnp.asarray(dv),
-                               jnp.asarray(probe), probe_impl="banded")
-    found, vals = np.asarray(found), np.asarray(vals)
-    expect = np.isin(probe, dim)
+    found, vals, rows = ex.hash_join(jnp.asarray(dim), jnp.asarray(dv),
+                                     jnp.asarray(probe), sorted_output=True)
+    found, vals, rows = np.asarray(found), np.asarray(vals), np.asarray(rows)
+    assert np.all(np.diff(probe[rows].astype(np.float64)) >= 0)
+    expect = np.isin(probe[rows], dim)
     np.testing.assert_array_equal(found, expect)
     sdim = np.sort(dim)
     lut = {int(k): i for i, k in enumerate(sdim)}
     for i in np.nonzero(expect)[0]:
-        assert vals[i] == lut[int(probe[i])]
+        assert vals[i] == lut[int(probe[rows[i]])]
 
 
 def test_hash_join_expand_u64_keys():
@@ -801,18 +751,10 @@ def test_group_aggregate_sorted_empty():
         assert table.dtype == t1.dtype, agg
 
 
-def test_hash_join_expand_dup_probe_window_dip():
-    """Regression: duplicate probe keys make the expansion's pass-2 build
-    positions NON-monotone (each repeated probe dips back to its range's
-    lb). When such a dip crosses a window-block boundary right at an
-    output-block boundary, the dipped query fell BELOW its block's band
-    window and silently returned the window-start value (r2 defect:
-    advisor finding, ops/exec/join.py pass 2). The construction places a
-    2-match key at build rows 32767-32768 (straddling the 4096-aligned
-    window-block boundary) with the straddle landing at output 16384 (the
-    128-row output-block boundary), every block's top-end overflow check
-    passing, and the dup probe's dip at output 16385."""
-    from cl_ops_tpu.ops.exec import join as join_mod
+def test_hash_join_expand_dup_probes():
+    """Duplicate probe keys over runs of 1- and 2-row build keys: each
+    repeated probe restarts at its key's first build row, so the build
+    positions of the output rows are not monotone."""
     runs = np.array([1] * 20480 + [2] + [2] * 6142 + [1] + [2]
                     + [2] * 4095 + [1] + [1] * (65536 - 40960))
     bk = np.repeat(np.arange(len(runs), dtype=np.int32), runs)
@@ -820,26 +762,17 @@ def test_hash_join_expand_dup_probe_window_dip():
     assert nb == 65536
     bv = np.arange(nb, dtype=np.int32) + 100
     pk = np.concatenate([
-        np.full(2049, bk[20480], np.int32),   # dup probes, dips in-window
+        np.full(2049, bk[20480], np.int32),   # one key probed 2049 times
         bk[20482:32766:2],                    # 6142 pair keys
         [bk[32766]],                          # single-row key
-        [bk[32767]], [bk[32767]],             # the straddling key, TWICE
+        [bk[32767]], [bk[32767]],             # a 2-row key, twice
         np.repeat(bk[32769:40959:2], 2),      # tail pairs probed twice
         [bk[40959]],
     ]).astype(np.int32)
     capacity = 32768
-    # the banded path must produce this itself — fail if it falls back
-    orig_fallback = join_mod._expand_from_ranges
-    calls = []
-    join_mod._expand_from_ranges = (
-        lambda *a, **k: (calls.append(1), orig_fallback(*a, **k))[1])
-    try:
-        total, pidx, vals = ex.hash_join_expand(
-            jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
-            capacity=capacity, build_sorted=True, use_pallas=True)
-    finally:
-        join_mod._expand_from_ranges = orig_fallback
-    assert not calls, "banded expansion fell back to XLA; bug not exercised"
+    total, pidx, vals = ex.hash_join_expand(
+        jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
+        capacity=capacity, build_sorted=True)
     total = int(total)
     order = np.argsort(pk, kind="stable")
     exp_vals, exp_pidx = [], []
@@ -858,10 +791,8 @@ def test_hash_join_expand_dup_probe_window_dip():
 def test_hash_join_sorted_output(unique_build, log2_nb):
     """sorted_output skips the restore sorts: scattering the outputs back
     through probe_rows must reproduce the default-path results, on both
-    the banded and merge strategies. nb=2^15 with 2^12 probes overflows
-    the band window (one probe block spans the whole build), so that size
-    covers the banded->merge FALLBACK; nb=2^11 keeps the span within the
-    window and exercises the real band kernels."""
+    the direct and merge strategies, with a build larger and smaller than
+    the probe side."""
     rng = np.random.RandomState(60)
     nb = 1 << log2_nb
     if unique_build:
@@ -871,15 +802,14 @@ def test_hash_join_sorted_output(unique_build, log2_nb):
     bv = (np.arange(nb, dtype=np.int32) + 7)
     pk = rng.randint(0, 3 * nb, size=1 << 12).astype(np.uint32)
     m = len(pk)
-    for impl in ("banded", "merge"):
+    for impl in ("direct", "merge"):
         ref = ex.hash_join(jnp.asarray(bk), jnp.asarray(bv),
                            jnp.asarray(pk), build_sorted=True,
-                           unique_build=unique_build, probe_impl=impl,
-                           use_pallas=True)
+                           unique_build=unique_build, probe_impl=impl)
         out = ex.hash_join(jnp.asarray(bk), jnp.asarray(bv),
                            jnp.asarray(pk), build_sorted=True,
                            unique_build=unique_build, probe_impl=impl,
-                           use_pallas=True, sorted_output=True)
+                           sorted_output=True)
         f0, v0 = np.asarray(ref[0]), np.asarray(ref[1])
         fs, vs, pr = (np.asarray(out[0]), np.asarray(out[1]),
                       np.asarray(out[2]))
@@ -896,38 +826,36 @@ def test_hash_join_sorted_output(unique_build, log2_nb):
 
 
 def test_hash_join_sorted_output_semi_anti_and_small_build():
-    """Small build sides must NOT auto-route sorted_output through the
-    direct strategy (original order would silently break the grouped-
-    output contract consumers like keys_sorted aggregates rely on)."""
+    """sorted_output keeps the grouped-output contract consumers like
+    keys_sorted aggregates rely on, for every join type and a small build
+    side."""
     rng = np.random.RandomState(61)
-    nb = 1 << 10  # <= DIRECT_MAX: auto picks banded anyway under sorted
+    nb = 1 << 10
     bk = np.arange(nb, dtype=np.uint32) * 2
     bv = np.arange(nb, dtype=np.int32)
     pk = rng.randint(0, 2 * nb, size=4096).astype(np.uint32)
     found, vals, pr = ex.hash_join(
         jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
-        build_sorted=True, use_pallas=True, sorted_output=True)
+        build_sorted=True, sorted_output=True)
     pr = np.asarray(pr)
     assert np.all(np.diff(pk[pr].astype(np.int64)) >= 0)  # grouped
     f = np.empty(len(pk), bool)
     f[pr] = np.asarray(found)
     np.testing.assert_array_equal(f, pk % 2 == 0)
-    # pinning the original-order impl under sorted_output is an error
-    with pytest.raises(ValueError, match="direct"):
+    # an unknown strategy is an error
+    with pytest.raises(ValueError, match="probe_impl"):
         ex.hash_join(jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
-                     build_sorted=True, use_pallas=True,
-                     sorted_output=True, probe_impl="direct")
+                     build_sorted=True, sorted_output=True,
+                     probe_impl="banded")
     semi, pr2 = ex.hash_join(
         jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
-        build_sorted=True, use_pallas=True, sorted_output=True,
-        join_type="semi")
+        build_sorted=True, sorted_output=True, join_type="semi")
     s = np.empty(len(pk), bool)
     s[np.asarray(pr2)] = np.asarray(semi)
     np.testing.assert_array_equal(s, pk % 2 == 0)
     anti, pr3 = ex.hash_join(
         jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
-        build_sorted=True, use_pallas=True, sorted_output=True,
-        join_type="anti")
+        build_sorted=True, sorted_output=True, join_type="anti")
     a = np.empty(len(pk), bool)
     a[np.asarray(pr3)] = np.asarray(anti)
     np.testing.assert_array_equal(a, pk % 2 == 1)
@@ -936,13 +864,10 @@ def test_hash_join_sorted_output_semi_anti_and_small_build():
 @pytest.mark.parametrize("unique_build,sorted_output",
                          [(True, False), (True, True), (False, False)])
 def test_hash_join_defer_overflow_jit(unique_build, sorted_output):
-    """defer_overflow is the serving form: the banded join becomes fully
-    jit-wrappable (no per-band-pass host sync), appends a device overflow
-    flag, and matches the host-synced path when the flag reads False."""
+    """defer_overflow is the serving form: the join under jax.jit appends
+    a device overflow flag (always False) and matches the plain call."""
     import jax
     rng = np.random.RandomState(64)
-    # band-friendly shape: one probe block's expected build span stays
-    # within the window (m >> nb), so the flag genuinely reads False
     nb = 1 << 11
     if unique_build:
         bk = np.arange(nb, dtype=np.uint32) * 2
@@ -951,46 +876,40 @@ def test_hash_join_defer_overflow_jit(unique_build, sorted_output):
     bv = np.arange(nb, dtype=np.int32) + 3
     pk = rng.randint(0, 2 * nb, size=1 << 13).astype(np.uint32)
     fn = jax.jit(lambda b, v, p: ex.hash_join(
-        b, v, p, build_sorted=True, use_pallas=True,
-        unique_build=unique_build, probe_impl="banded",
+        b, v, p, build_sorted=True, unique_build=unique_build,
         sorted_output=sorted_output, defer_overflow=True))
     out = fn(jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk))
-    assert not bool(out[-1]), "unexpected band overflow"
+    assert not bool(out[-1]), "unexpected overflow flag"
     ref = ex.hash_join(jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
-                       build_sorted=True, use_pallas=True,
-                       unique_build=unique_build, probe_impl="banded",
+                       build_sorted=True, unique_build=unique_build,
                        sorted_output=sorted_output)
     ref = ref if isinstance(ref, tuple) else (ref,)
     for got, want in zip(out[:-1], ref):
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
-def test_hash_join_defer_overflow_flags_extreme_skew():
-    """A probe block spanning more build rows than one band window must
-    read back ovf=True on the deferred path (results garbage), while the
-    host-synced default falls back to the merge probe and stays exact."""
-    from cl_ops_tpu.ops.exec import bandprobe
-    nb = bandprobe.DIRECT_MAX * 8
+def test_hash_join_defer_overflow_extreme_skew():
+    """Probes spread over a build 8x their block span: nothing can
+    overflow, so the deferred flag reads False and the results are exact
+    on every strategy."""
+    nb = 1 << 17
     bk = np.arange(nb, dtype=np.uint32)
     bv = np.arange(nb, dtype=np.int32)
     pk = np.linspace(0, nb - 1, 1 << 14).astype(np.uint32)
-    out = ex.hash_join(jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
-                       build_sorted=True, use_pallas=True,
-                       probe_impl="banded", defer_overflow=True)
-    assert bool(out[-1]), "extreme skew did not flag the deferred path"
-    found, vals = ex.hash_join(
-        jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
-        build_sorted=True, use_pallas=True, probe_impl="banded")
-    assert bool(np.asarray(found).all())
-    np.testing.assert_array_equal(np.asarray(vals), pk.astype(np.int32))
+    for impl in ("direct", "merge"):
+        found, vals, ovf = ex.hash_join(
+            jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
+            build_sorted=True, probe_impl=impl, defer_overflow=True)
+        assert not bool(ovf)
+        assert bool(np.asarray(found).all())
+        np.testing.assert_array_equal(np.asarray(vals), pk.astype(np.int32))
 
 
 @pytest.mark.parametrize("unique_build", [True, False])
 def test_hash_join_sorted_output_grouped_on_xla_merge(unique_build):
-    """The XLA merge path (use_pallas=False — also what the >= 2^29-row
-    _PACK_MAX demotion lands on) must honor the grouped-output contract
-    with a REAL probe-row map, not original order + iota (r3 review:
-    keys_sorted consumers got silently wrong sums on this path)."""
+    """The merge strategy must honor the grouped-output contract with a
+    REAL probe-row map, not original order + iota (keys_sorted consumers
+    would get silently wrong sums)."""
     rng = np.random.RandomState(62)
     nb = 1 << 10
     if unique_build:
@@ -1001,10 +920,10 @@ def test_hash_join_sorted_output_grouped_on_xla_merge(unique_build):
     pk = rng.randint(0, 2 * nb, size=4096).astype(np.uint32)
     out = ex.hash_join(jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
                        build_sorted=True, unique_build=unique_build,
-                       use_pallas=False, sorted_output=True)
+                       probe_impl="merge", sorted_output=True)
     ref = ex.hash_join(jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
                        build_sorted=True, unique_build=unique_build,
-                       use_pallas=False)
+                       probe_impl="merge")
     fs, vs, pr = np.asarray(out[0]), np.asarray(out[1]), np.asarray(out[2])
     assert sorted(pr) == list(range(len(pk)))
     assert np.all(np.diff(pk[pr].astype(np.int64)) >= 0)  # grouped
@@ -1020,8 +939,7 @@ def test_hash_join_sorted_output_grouped_on_xla_merge(unique_build):
 
 def test_sorted_output_keys_sorted_composition_small_dim():
     """The userguide's restore-free join->aggregate composition must be
-    exact with a small (<= DIRECT_MAX) dimension side and default
-    probe_impl — the r3 review's reproduced silent-wrong-sums case."""
+    exact with a small dimension side and the default probe_impl."""
     rng = np.random.RandomState(63)
     nb = 64
     dim_keys = np.arange(nb, dtype=np.uint32) * 2
@@ -1030,12 +948,11 @@ def test_sorted_output_keys_sorted_composition_small_dim():
     measure = rng.randint(0, 100, size=4096).astype(np.int32)
     found, _, rows, (m_s, k_s) = ex.hash_join(
         jnp.asarray(dim_keys), jnp.asarray(dim_vals), jnp.asarray(pk),
-        build_sorted=True, use_pallas=True, sorted_output=True,
+        build_sorted=True, sorted_output=True,
         probe_cols=(jnp.asarray(measure), jnp.asarray(pk)))
     contrib = jnp.where(found, m_s, jnp.int32(0))
     gk, sums, cnt = ex.group_aggregate_sorted(
-        k_s, contrib, num_groups=2 * nb, keys_sorted=True,
-        use_pallas=True)
+        k_s, contrib, num_groups=2 * nb, keys_sorted=True)
     got = {int(k): int(s) for k, s in
            zip(np.asarray(gk)[:int(cnt)], np.asarray(sums)[:int(cnt)])}
     expect = {int(k): int(measure[(pk == k)].sum()) if k % 2 == 0 else 0
@@ -1044,44 +961,26 @@ def test_sorted_output_keys_sorted_composition_small_dim():
     assert got == expect
 
 
-def test_hash_join_expand_sparse_gather_fallback():
-    """Sparse match ranges: one 16K-output block spans more build rows
-    than the band window. Pass 2 must fall back to the direct XLA gather
-    (keeping pass 1's band segment search) — NOT the full searchsorted
-    path (r2 weak item: 49 s at 64M)."""
-    from cl_ops_tpu.ops.exec import join as join_mod
+def test_hash_join_expand_sparse_ranges():
+    """Sparse match ranges: every probe matches exactly one build row and
+    the matches stride the whole build."""
     nb = 1 << 16
     bk = np.arange(nb, dtype=np.uint32) * 2      # sorted, unique
     bv = np.arange(nb, dtype=np.int32) + 1000
-    # every probe matches exactly one build row, matches striding the
-    # whole build: output block spans ~4x the 16K window -> ovf2
     pk = (np.arange(1 << 14, dtype=np.uint32) * 8)  # = bk[::4]
-    capacity = 1 << 14
-    orig_fallback = join_mod._expand_from_ranges
-    orig_gather = join_mod._jit_gather
-    calls, gathers = [], []
-    join_mod._expand_from_ranges = (
-        lambda *a, **k: (calls.append(1), orig_fallback(*a, **k))[1])
-    join_mod._jit_gather = (
-        lambda *a: (gathers.append(1), orig_gather(*a))[1])
-    try:
+    for impl in ("direct", "merge"):
         total, pidx, vals = ex.hash_join_expand(
             jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
-            capacity=capacity, build_sorted=True, use_pallas=True)
-    finally:
-        join_mod._expand_from_ranges = orig_fallback
-        join_mod._jit_gather = orig_gather
-    assert not calls, "sparse case fell into the full XLA fallback"
-    assert gathers, "band window did not overflow: case is not sparse"
-    assert int(total) == len(pk)
-    np.testing.assert_array_equal(np.asarray(pidx), np.arange(len(pk)))
-    np.testing.assert_array_equal(np.asarray(vals),
-                                  (pk // 2 + 1000).astype(np.int32))
+            capacity=1 << 14, build_sorted=True, probe_impl=impl)
+        assert int(total) == len(pk)
+        np.testing.assert_array_equal(np.asarray(pidx), np.arange(len(pk)))
+        np.testing.assert_array_equal(np.asarray(vals),
+                                      (pk // 2 + 1000).astype(np.int32))
 
 
 def test_filter_compact_wide_columns():
-    """Wide (8-byte) and narrow (2-byte) payload columns ride the Pallas
-    compaction as i32 limb encodings (r2 weak item 5)."""
+    """Wide (8-byte) and narrow (2-byte) payload columns ride the
+    compaction sort as they are."""
     rng = np.random.RandomState(80)
     n = 4096
     x = rng.randint(0, 1000, size=n).astype(np.uint32)
@@ -1091,7 +990,7 @@ def test_filter_compact_wide_columns():
     pred = lambda d: d < jnp.uint32(300)  # noqa: E731
     count, px, p64, pf, p16 = ex.filter_compact(
         jnp.asarray(x), pred, jnp.asarray(c64), jnp.asarray(f64),
-        jnp.asarray(c16), use_pallas=True)
+        jnp.asarray(c16))
     k = int(count)
     keep = x < 300
     assert k == keep.sum()
@@ -1101,28 +1000,26 @@ def test_filter_compact_wide_columns():
     np.testing.assert_array_equal(np.asarray(p16)[:k], c16[keep])
 
 
-def test_filter_compact_two_limb_rank():
-    """The 2n >= 2^31 regime (1B-row scale) uses the (flag, pos) rank;
-    exercised by shrinking the pack threshold."""
-    from cl_ops_tpu.ops.exec import filter as filter_mod
+@pytest.mark.parametrize("frac", [0.0, 0.5, 1.0])
+def test_filter_compact_keeps_input_order(frac):
+    """Kept rows come out in input order (the partition is stable), with
+    many equal data values and at the all-dropped / all-kept extremes."""
     rng = np.random.RandomState(81)
     n = 3333
-    x = rng.randint(0, 1000, size=n).astype(np.uint32)
-    pred = lambda d: (d & jnp.uint32(1)) == 0  # noqa: E731
-    orig = filter_mod._PACK_MAX
-    filter_mod._PACK_MAX = 64  # force the two-column rank path
-    try:
-        count, packed = ex.filter_compact(jnp.asarray(x), pred,
-                                          use_pallas=True)
-    finally:
-        filter_mod._PACK_MAX = orig
-    keep = x % 2 == 0
+    x = rng.randint(0, 4, size=n).astype(np.uint32)
+    pos = np.arange(n, dtype=np.int32)
+    keep = rng.rand(n) < frac
+    flag = jnp.asarray(keep)
+    count, pk, pp = ex.filter_compact(
+        jnp.asarray(pos), lambda p: jnp.take(flag, p), jnp.asarray(x))
     assert int(count) == keep.sum()
-    np.testing.assert_array_equal(np.asarray(packed)[:keep.sum()], x[keep])
+    np.testing.assert_array_equal(np.asarray(pk)[:keep.sum()], pos[keep])
+    np.testing.assert_array_equal(np.asarray(pp)[:keep.sum()], x[keep])
 
 
 def test_hash_join_wide_m_restore():
-    """Banded restore without key packing (2m >= 2^31 regime)."""
+    """The merge probe's restore without key packing (2m >= 2^31
+    regime), exercised by shrinking the pack threshold."""
     from cl_ops_tpu.ops.exec import join as join_mod
     rng = np.random.RandomState(82)
     nb = 1 << 15
@@ -1134,7 +1031,7 @@ def test_hash_join_wide_m_restore():
     try:
         found, vals = ex.hash_join(jnp.asarray(bk), jnp.asarray(bv),
                                    jnp.asarray(pk), build_sorted=True,
-                                   probe_impl="banded", use_pallas=True)
+                                   probe_impl="merge")
     finally:
         join_mod._PACK_MAX = orig
     expect = pk % 3 == 0
@@ -1143,14 +1040,13 @@ def test_hash_join_wide_m_restore():
                                   (pk[expect] // 3 + 5).astype(np.int32))
 
 
-@pytest.mark.parametrize("impl", ["direct", "banded", "merge"])
+@pytest.mark.parametrize("impl", ["auto", "direct", "merge"])
 @pytest.mark.parametrize("unique_build", [True, False])
 def test_hash_join_u64_values(impl, unique_build):
     """8-byte build values ride every probe strategy as two i32 limb
-    columns. Regression: the old 'fallback' silently returned only the
-    LOW limb (jnp.take flattened the (n,2) bitcast)."""
+    columns (a flattened (n, 2) bitcast would return the LOW limb only)."""
     rng = np.random.RandomState(83)
-    nb = (1 << 15) if impl == "banded" else 1000
+    nb = (1 << 15) if impl == "auto" else 1000
     if unique_build:
         bk = np.arange(nb, dtype=np.uint32) * 2
     else:
@@ -1158,7 +1054,7 @@ def test_hash_join_u64_values(impl, unique_build):
     bv = (np.arange(nb, dtype=np.uint64) + (np.uint64(1) << np.uint64(40)))
     pk = rng.randint(0, 2 * nb, size=2048).astype(np.uint32)
     out = ex.hash_join(jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
-                       build_sorted=True, use_pallas=True, probe_impl=impl,
+                       build_sorted=True, probe_impl=impl,
                        unique_build=unique_build)
     found, vals = np.asarray(out[0]), np.asarray(out[1])
     expect = np.isin(pk, bk)
@@ -1188,7 +1084,7 @@ def test_hash_join_expand_u64_values():
     cap = 1 << int(np.ceil(np.log2(max(len(exp_vals), 2))))
     total, pidx, vals = ex.hash_join_expand(
         jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk), capacity=cap,
-        build_sorted=True, use_pallas=True)
+        build_sorted=True)
     t = int(total)
     assert t == len(exp_vals)
     np.testing.assert_array_equal(np.asarray(pidx)[:t], exp_pidx)
@@ -1196,18 +1092,17 @@ def test_hash_join_expand_u64_values():
 
 
 @pytest.mark.parametrize("agg", ["min", "max"])
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_group_aggregate_sorter_path_minmax(agg, use_pallas):
-    """Explicit-sorter path min/max: the (group_id, value) re-sort form
-    (was an element-serialized XLA scatter, r2 weak item 6)."""
+@pytest.mark.parametrize("sorter_name", ["xla", "abitonic"])
+def test_group_aggregate_sorter_path_minmax(agg, sorter_name):
+    """Explicit registry sorter path min/max."""
     from cl_ops_tpu.ops.sort import sort_new
     rng = np.random.RandomState(90)
     keys = rng.randint(0, 37, size=1500).astype(np.uint32)
     vals = rng.randint(-100, 100, size=1500).astype(np.int32)
-    s = sort_new("xla")
+    s = sort_new(sorter_name)
     gk, table, cnt = ex.group_aggregate_sorted(
         jnp.asarray(keys), jnp.asarray(vals), num_groups=64, agg=agg,
-        sorter=s, use_pallas=use_pallas)
+        sorter=s)
     uniq = np.unique(keys)
     assert int(cnt) == len(uniq)
     np.testing.assert_array_equal(np.asarray(gk)[:len(uniq)], uniq)
@@ -1224,7 +1119,7 @@ def test_group_aggregate_keys_sorted_fusion():
     vals = rng.randint(0, 100, size=2000).astype(np.int32)
     gk, table, cnt = ex.group_aggregate_sorted(
         jnp.asarray(keys), jnp.asarray(vals), num_groups=64, agg="sum",
-        keys_sorted=True, use_pallas=True)
+        keys_sorted=True)
     uniq = np.unique(keys)
     assert int(cnt) == len(uniq)
     np.testing.assert_array_equal(np.asarray(gk)[:len(uniq)], uniq)
@@ -1233,23 +1128,21 @@ def test_group_aggregate_keys_sorted_fusion():
 
 
 def test_filter_compact_bool_payload_falls_back():
-    """bool payload columns cannot bitcast to i32 — must take the lax.sort
-    fallback instead of crashing (review finding r3)."""
+    """bool payload columns ride the compaction sort as they are."""
     rng = np.random.RandomState(85)
     x = rng.randint(0, 100, size=1024).astype(np.int32)
     flags = (x % 7 == 0)
     pred = lambda d: d < 50  # noqa: E731
     count, px, pf = ex.filter_compact(jnp.asarray(x), pred,
-                                      jnp.asarray(flags), use_pallas=True)
+                                      jnp.asarray(flags))
     m = x < 50
     assert int(count) == m.sum()
     np.testing.assert_array_equal(np.asarray(px)[:m.sum()], x[m])
     np.testing.assert_array_equal(np.asarray(pf)[:m.sum()], flags[m])
 
 
-def test_dist_group_aggregate_pallas_minmax_float():
-    """Pallas local path min/max with float values: value columns must be
-    order-normalized limbs, not raw bitcasts (review finding r3)."""
+def test_dist_group_aggregate_minmax_float():
+    """Distributed min/max with negative float values."""
     import jax
     from cl_ops_tpu import parallel
     from cl_ops_tpu.parallel.aggregate import dist_group_aggregate
@@ -1262,7 +1155,7 @@ def test_dist_group_aggregate_pallas_minmax_float():
     for agg in ("min", "max"):
         gk, table, cnt = dist_group_aggregate(
             jnp.asarray(keys), jnp.asarray(vals), mesh,
-            num_groups=32, capacity=n, agg=agg, use_pallas=True)
+            num_groups=32, capacity=n, agg=agg)
         gk = np.asarray(gk).reshape(8, 32)
         table = np.asarray(table).reshape(8, 32)
         cnt = np.asarray(cnt).reshape(8)
@@ -1276,17 +1169,13 @@ def test_dist_group_aggregate_pallas_minmax_float():
                                        rtol=1e-6, err_msg=agg)
 
 
-@pytest.mark.parametrize("impl", ["banded", "merge"])
+@pytest.mark.parametrize("impl", ["direct", "merge"])
 def test_hash_join_probe_cols(impl):
     """probe_cols ride the join to output order: the fact-measure channel
-    for join -> aggregate without per-column random gathers. ("direct"
-    is excluded by API: probe_cols requires sorted_output, which rejects
-    the original-order direct strategy.)"""
+    for join -> aggregate (they ride the probe sort on "direct" and are
+    gathered through probe_rows on "merge")."""
     rng = np.random.RandomState(92)
-    # 2^11 keeps the band window unviolated at 4096 probes, so "banded"
-    # really verifies the extra-cols-ride-the-probe-sort channel (2^15
-    # would silently fall back to merge and bypass it)
-    nb = (1 << 11) if impl == "banded" else 512
+    nb = (1 << 11) if impl == "direct" else 512
     bk = np.arange(nb, dtype=np.uint32) * 2
     bv = np.arange(nb, dtype=np.int32)
     pk = rng.randint(0, 2 * nb, size=4096).astype(np.uint32)
@@ -1295,7 +1184,7 @@ def test_hash_join_probe_cols(impl):
                        dtype=np.int64).astype(np.uint64)
     found, vals, pr, (m_out, w_out) = ex.hash_join(
         jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
-        build_sorted=True, use_pallas=True, probe_impl=impl,
+        build_sorted=True, probe_impl=impl,
         sorted_output=True, probe_cols=(jnp.asarray(measure),
                                         jnp.asarray(wide)))
     pr = np.asarray(pr)
@@ -1323,11 +1212,52 @@ def test_psort_col_encodings_roundtrip():
             rng.randint(0, 1 << 62, 256, dtype=np.int64).astype(np.uint64),
             rng.randn(256))
     jcols = tuple(jnp.asarray(c) for c in cols)
-    assert psort.cols_encodable(*jcols)
     enc, spec = psort.cols_to_i32(jcols)
     assert all(jnp.dtype(e.dtype) == jnp.int32 for e in enc)
     dec = psort.cols_from_i32(enc, spec)
     for d, c in zip(dec, cols):
         np.testing.assert_array_equal(np.asarray(d), c)
-    assert not psort.cols_encodable(jnp.asarray(np.zeros(4, bool)))
-    assert not psort.cols_encodable(jnp.asarray(np.zeros(4, np.complex64)))
+
+
+@pytest.mark.parametrize("n,groups,aligned", [(12288, 109, False),
+                                              (12288, 96, True),
+                                              (4097, 3, False),
+                                              (20000, 300, False)])
+def test_group_aggregate_sparse_groups_multi_block(n, groups, aligned):
+    """Sparse groups (groups * 64 < n) find their ends by the two-level
+    search over 4096-row blocks. Its in-block binary search needs
+    block.bit_length() halvings: one fewer ended groups one row short
+    (37 where 49 was right at 12288 rows and 109 groups). aligned: groups
+    of 128 rows after a first one of 130, so a group ends on the second
+    row of every 4096-row block — the candidate a short search misses."""
+    rng = np.random.RandomState(n + groups)
+    if aligned:
+        sizes = [130] + [128] * (groups - 2) + [n - 130 - 128 * (groups - 2)]
+        keys = rng.permutation(np.repeat(np.arange(groups, dtype=np.int32),
+                                         sizes))
+    else:
+        keys = rng.randint(0, groups, size=n).astype(np.int32)
+    vals = rng.randint(0, 100, size=n).astype(np.int32)
+    gk, table, cnt = ex.group_aggregate_sorted(
+        jnp.asarray(keys), jnp.asarray(vals), num_groups=groups)
+    uk = np.unique(keys)
+    assert int(cnt) == len(uk)
+    np.testing.assert_array_equal(np.asarray(gk)[:len(uk)], uk)
+    np.testing.assert_array_equal(
+        np.asarray(table)[:len(uk)],
+        np.bincount(keys, weights=vals, minlength=groups)[uk].astype(int))
+
+
+@pytest.mark.parametrize("n", [4096, 4097, 12288, 3 * 4096 + 1])
+def test_searchsorted_2level_block_edges(n):
+    """The two-level search equals np.searchsorted(side='left') for
+    targets at every block's first and last rows."""
+    from cl_ops_tpu.ops.exec.aggregate import _searchsorted_2level
+    acc = np.arange(1, n + 1, dtype=np.int32)  # strictly increasing
+    edges = np.unique(np.concatenate([np.arange(0, n, 4096),
+                                      np.arange(4095, n, 4096), [n - 1]]))
+    targets = np.concatenate([acc[edges], acc[edges] + 1, [0, n + 5]])
+    targets = targets.astype(np.int32)
+    got = np.asarray(_searchsorted_2level(jnp.asarray(acc),
+                                          jnp.asarray(targets), n))
+    np.testing.assert_array_equal(got, np.searchsorted(acc, targets, "left"))

@@ -1,6 +1,7 @@
 """Flagship pipeline tests vs numpy oracles."""
 
 import numpy as np
+import pytest
 
 from cl_ops_tpu import models
 from cl_ops_tpu.ops.rng import threefry
@@ -13,8 +14,9 @@ def _oracle_table(n, seed=0, key_space=1 << 20, value_space=1 << 10):
     return keys, vals
 
 
-def test_sort_pipeline():
-    sorted_keys, ok = models.sort_pipeline(4096, seed=1)
+@pytest.mark.parametrize("impl", ["xla", "abitonic", "satradix"])
+def test_sort_pipeline(impl):
+    sorted_keys, ok = models.sort_pipeline(4096, seed=1, impl=impl)
     assert bool(ok)
     keys, _ = _oracle_table(4096, 1)
     np.testing.assert_array_equal(np.asarray(sorted_keys), np.sort(keys))
@@ -33,10 +35,12 @@ def test_analytics_query():
     np.testing.assert_array_equal(np.asarray(table), expect.astype(np.uint32))
 
 
-def test_star_query():
+@pytest.mark.parametrize("probe_impl", ["direct", "merge"])
+def test_star_query(probe_impl):
     n, dim_rows, cats = 1 << 14, 1 << 10, 32
     count, table = models.star_query(n, dim_rows=dim_rows, num_cats=cats,
-                                     seed=3, threshold=512)
+                                     seed=3, threshold=512,
+                                     probe_impl=probe_impl)
     # numpy oracle over the same generated data
     keys, values = (np.asarray(a) for a in models.generate_table(
         n, 3, key_space=dim_rows))
@@ -53,7 +57,7 @@ def test_star_query():
 
 def test_q1_query():
     """TPC-H-Q1 shape: filter -> six-aggregate multi-measure GROUP BY in
-    one jit, Pallas and XLA paths against the numpy oracle."""
+    one jit, against the numpy oracle."""
     import numpy as np
     import jax.numpy as jnp
     from cl_ops_tpu.models.pipeline import q1_query
@@ -68,31 +72,31 @@ def test_q1_query():
                        % jnp.uint32(10000)).astype(np.int64)
     m = qty < 768
     uk = np.unique(keys[m])
-    for up in (True, False):
-        count, gk, (sq, sp, mnq, mxp, c, meanp), gcnt = q1_query(
-            n, num_groups=g, use_pallas=up)
-        assert int(count) == m.sum() and int(gcnt) == len(uk)
-        np.testing.assert_array_equal(np.asarray(gk)[:len(uk)], uk)
-        for i, k in enumerate(uk):
-            sel = m & (keys == k)
-            assert int(np.asarray(sq)[i]) == qty[sel].sum()
-            assert int(np.asarray(sp)[i]) == price[sel].sum()
-            assert int(np.asarray(mnq)[i]) == qty[sel].min()
-            assert int(np.asarray(mxp)[i]) == price[sel].max()
-            assert int(np.asarray(c)[i]) == sel.sum()
-            assert abs(float(np.asarray(meanp)[i])
-                       - price[sel].mean()) < 1e-2
+    count, gk, (sq, sp, mnq, mxp, c, meanp), gcnt = q1_query(
+        n, num_groups=g)
+    assert int(count) == m.sum() and int(gcnt) == len(uk)
+    np.testing.assert_array_equal(np.asarray(gk)[:len(uk)], uk)
+    for i, k in enumerate(uk):
+        sel = m & (keys == k)
+        assert int(np.asarray(sq)[i]) == qty[sel].sum()
+        assert int(np.asarray(sp)[i]) == price[sel].sum()
+        assert int(np.asarray(mnq)[i]) == qty[sel].min()
+        assert int(np.asarray(mxp)[i]) == price[sel].max()
+        assert int(np.asarray(c)[i]) == sel.sum()
+        assert abs(float(np.asarray(meanp)[i])
+                   - price[sel].mean()) < 1e-2
 
 
 def test_rollup_query():
     """Restore-free join->aggregate fusion pipeline: ONE probe sort total
-    (banded sorted_output + probe_cols + keys_sorted aggregate)."""
+    (sorted_output + probe_cols + keys_sorted aggregate); the direct and
+    merge probe strategies agree."""
     import numpy as np
     import jax.numpy as jnp
     from cl_ops_tpu.models.pipeline import generate_table, rollup_query
     n, dim_rows = 1 << 13, 1 << 9
-    gk, table, cnt = rollup_query(n, dim_rows=dim_rows, use_pallas=True)
-    gk0, t0, c0 = rollup_query(n, dim_rows=dim_rows, use_pallas=False)
+    gk, table, cnt = rollup_query(n, dim_rows=dim_rows, probe_impl="direct")
+    gk0, t0, c0 = rollup_query(n, dim_rows=dim_rows, probe_impl="merge")
     assert int(cnt) == int(c0)
     k = int(cnt)
     np.testing.assert_array_equal(np.asarray(gk)[:k], np.asarray(gk0)[:k])

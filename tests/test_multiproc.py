@@ -1,9 +1,9 @@
-"""Multi-process DCN simulation: 2 processes x 4 CPU devices.
+"""Multi-process simulation: 2 processes x 4 CPU devices.
 
 SURVEY.md §4's "multi-host tests via multi-process simulation on one
 host": spawns two jax.distributed processes (tests/mp_worker.py), forming
 one 8-device global mesh whose collectives cross the process boundary
-(Gloo — the DCN stand-in), and runs dist_scan / dist_sort /
+(Gloo between the processes), and runs dist_scan / dist_sort /
 dist_group_aggregate / the skew-replanning dist_hash_join across it.
 """
 

@@ -16,7 +16,7 @@ def mesh8():
 def test_dist_scan_exclusive(mesh8):
     rng = np.random.RandomState(0)
     x = rng.randint(0, 1000, size=8 * 1000).astype(np.uint32)
-    out = parallel.dist_scan(x, mesh8, sum_dtype=np.uint64, use_pallas=False)
+    out = parallel.dist_scan(x, mesh8, sum_dtype=np.uint64)
     expect = np.cumsum(x.astype(np.uint64)) - x
     np.testing.assert_array_equal(np.asarray(out), expect)
 
@@ -24,64 +24,67 @@ def test_dist_scan_exclusive(mesh8):
 def test_dist_scan_inclusive(mesh8):
     rng = np.random.RandomState(1)
     x = rng.randint(0, 1000, size=8 * 64).astype(np.int32)
-    out = parallel.dist_scan(x, mesh8, sum_dtype=np.int64, exclusive=False,
-                             use_pallas=False)
+    out = parallel.dist_scan(x, mesh8, sum_dtype=np.int64, exclusive=False)
     np.testing.assert_array_equal(np.asarray(out),
                                   np.cumsum(x.astype(np.int64)))
 
 
 def test_dist_scan_sharding_preserved(mesh8):
     x = np.arange(8 * 128, dtype=np.uint32)
-    out = parallel.dist_scan(x, mesh8, sum_dtype=np.uint32, use_pallas=False)
+    out = parallel.dist_scan(x, mesh8, sum_dtype=np.uint32)
     assert len(out.sharding.device_set) == 8
+
+
+@pytest.mark.parametrize("exclusive", [True, False])
+def test_dist_scan_wraps_in_sum_dtype(mesh8, exclusive):
+    """u32 sums wrap modulo 2^32 across chips and stay u32 (the carry of
+    earlier chips must not widen to u64 under x64)."""
+    rng = np.random.RandomState(3)
+    x = rng.randint(0, 1 << 32, size=8 * 300, dtype=np.uint64
+                    ).astype(np.uint32)
+    out = parallel.dist_scan(x, mesh8, sum_dtype=np.uint32,
+                             exclusive=exclusive)
+    expect = np.cumsum(x, dtype=np.uint32)
+    if exclusive:
+        expect = expect - x
+    assert out.dtype == np.uint32
+    np.testing.assert_array_equal(np.asarray(out), expect)
 
 
 def test_dist_scan_uneven_rejected(mesh8):
     with pytest.raises(ValueError):
         parallel.dist_scan(np.arange(9, dtype=np.uint32), mesh8,
-                           sum_dtype=np.uint64, use_pallas=False)
+                           sum_dtype=np.uint64)
 
 
 def test_dist_scan_pallas_interpret(mesh8):
-    """The Pallas local-scan path under shard_map (interpret mode on CPU)."""
+    """Full-range u32 values into u64 sums, with shards longer than a
+    scan block (4096 elements)."""
     rng = np.random.RandomState(2)
-    x = rng.randint(0, 1000, size=8 * 2048).astype(np.uint32)
-    from cl_ops_tpu.ops.scan import kernels as K
-    import cl_ops_tpu.parallel.scan as ps
-    orig = ps._local_inclusive
-
-    def patched(xs, sum_dtype, use_pallas):
-        if use_pallas:
-            return K.scan_1d(xs, sum_dtype=sum_dtype, exclusive=False,
-                             block_rows=8, interpret=True)
-        return orig(xs, sum_dtype, False)
-
-    ps._local_inclusive = patched
-    try:
-        out = parallel.dist_scan(x, mesh8, sum_dtype=np.uint64,
-                                 use_pallas=True)
-    finally:
-        ps._local_inclusive = orig
+    x = rng.randint(0, 1 << 32, size=8 * 9000, dtype=np.uint64
+                    ).astype(np.uint32)
+    out = parallel.dist_scan(x, mesh8, sum_dtype=np.uint64)
     expect = np.cumsum(x.astype(np.uint64)) - x
     np.testing.assert_array_equal(np.asarray(out), expect)
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32])
 @pytest.mark.parametrize("op,exclusive", [("add", True), ("add", False),
                                           ("min", False), ("max", True)])
-def test_dist_segmented_scan(mesh8, op, exclusive, use_pallas):
+def test_dist_segmented_scan(mesh8, op, exclusive, dtype):
     """Per-segment scans across shards: flags landing on and off shard
     boundaries, segments spanning several shards."""
     from tests.test_segmented import host_segmented_scan
     rng = np.random.RandomState(17)
     n = 8 * 512
-    x = rng.randint(0, 1000, size=n).astype(np.uint32)
+    x = rng.randint(-1000 if dtype == np.int32 else 0, 1000,
+                    size=n).astype(dtype)
     flags = (rng.rand(n) < 0.004).astype(np.int32)  # ~16 flags, long runs
     flags[512] = 1       # exactly on a shard boundary
     flags[3 * 512:5 * 512] = 0  # a run spanning >2 shards
     out = parallel.dist_segmented_scan(
-        x, flags, mesh8, op=op, exclusive=exclusive, use_pallas=use_pallas)
-    expect = host_segmented_scan(x, flags, np.uint32, exclusive, op)
+        x, flags, mesh8, op=op, exclusive=exclusive)
+    expect = host_segmented_scan(x, flags, dtype, exclusive, op)
     np.testing.assert_array_equal(np.asarray(out), expect)
 
 
@@ -89,7 +92,7 @@ def test_dist_segmented_scan_no_flags(mesh8):
     """Degenerates to dist_scan when nothing restarts."""
     x = np.arange(8 * 64, dtype=np.uint32)
     out = parallel.dist_segmented_scan(x, np.zeros(8 * 64, np.int32), mesh8,
-                                       exclusive=False, use_pallas=False)
+                                       exclusive=False)
     np.testing.assert_array_equal(np.asarray(out),
                                   np.cumsum(x).astype(np.uint32))
 
@@ -97,7 +100,7 @@ def test_dist_segmented_scan_no_flags(mesh8):
 def test_dist_sort(mesh8):
     rng = np.random.RandomState(10)
     x = rng.randint(0, 1 << 31, size=8 * 4096, dtype=np.int64).astype(np.uint32)
-    out = parallel.dist_sort(x, mesh8, use_pallas=False)
+    out = parallel.dist_sort(x, mesh8)
     np.testing.assert_array_equal(np.asarray(out), np.sort(x))
     assert len(out.sharding.device_set) == 8
 
@@ -105,7 +108,7 @@ def test_dist_sort(mesh8):
 def test_dist_sort_descending(mesh8):
     rng = np.random.RandomState(11)
     x = rng.randint(-1000, 1000, size=8 * 512).astype(np.int32)
-    out = parallel.dist_sort(x, mesh8, ascending=False, use_pallas=False)
+    out = parallel.dist_sort(x, mesh8, ascending=False)
     np.testing.assert_array_equal(np.asarray(out), np.sort(x)[::-1])
 
 
@@ -113,16 +116,16 @@ def test_dist_sort_key_value(mesh8):
     rng = np.random.RandomState(12)
     x = rng.randint(0, 100, size=8 * 256).astype(np.uint32)
     v = np.arange(8 * 256, dtype=np.int32)
-    out, vout = parallel.dist_sort(x, mesh8, values=v, use_pallas=False)
+    out, vout = parallel.dist_sort(x, mesh8, values=v)
     np.testing.assert_array_equal(np.asarray(out), np.sort(x))
     np.testing.assert_array_equal(x[np.asarray(vout)], np.asarray(out))
 
 
-def test_dist_sort_pallas_interpret(mesh8):
-    """Pallas local sort/merge path under shard_map interpret mode."""
+def test_dist_sort_non_po2_shards(mesh8):
+    """Shards of a non-power-of-two length pad to the network size."""
     rng = np.random.RandomState(13)
-    x = rng.randint(0, 1 << 31, size=8 * 1024, dtype=np.int64).astype(np.uint32)
-    out = parallel.dist_sort(x, mesh8, use_pallas=True, block_rows=8)
+    x = rng.randint(0, 1 << 31, size=8 * 1000, dtype=np.int64).astype(np.uint32)
+    out = parallel.dist_sort(x, mesh8)
     np.testing.assert_array_equal(np.asarray(out), np.sort(x))
 
 
@@ -197,6 +200,37 @@ def test_dist_group_aggregate(mesh8):
             got[int(gk[c, i])] = int(table[c, i])
     expect = {int(k): int(vals[keys == k].sum()) for k in np.unique(keys)}
     assert got == expect
+
+
+@pytest.mark.parametrize("op", ["join", "aggregate", "sort", "scan",
+                                "segmented_scan", "top_k"])
+def test_mesh_programs_built_once(mesh8, op):
+    """A second call with the same shapes and plan reuses every shard_map
+    program (no new jit, so nothing re-traces)."""
+    from cl_ops_tpu.parallel.mesh import mesh_program
+    rng = np.random.RandomState(40)
+    n = 8 * 256
+    keys = rng.randint(0, 64, size=n).astype(np.uint32)
+    vals = rng.randint(0, 50, size=n).astype(np.int32)
+    calls = {
+        "join": lambda: parallel.dist_hash_join(
+            keys[:8 * 32], vals[:8 * 32], keys, mesh8, capacity_build=64,
+            capacity_probe=n),
+        "aggregate": lambda: parallel.dist_group_aggregate(
+            keys, vals, mesh8, num_groups=64, capacity=n, agg="sum"),
+        "sort": lambda: parallel.dist_sort(keys, mesh8),
+        "scan": lambda: parallel.dist_scan(keys, mesh8, sum_dtype=np.uint64),
+        "segmented_scan": lambda: parallel.dist_segmented_scan(
+            vals, (keys == 0).astype(np.int32), mesh8),
+        "top_k": lambda: parallel.dist_top_k(vals, 5, mesh8, keys),
+    }
+    first = jax.block_until_ready(calls[op]())
+    built = mesh_program.cache_info().misses
+    again = jax.block_until_ready(calls[op]())
+    assert mesh_program.cache_info().misses == built
+    for a, b in zip(jax.tree_util.tree_leaves(first),
+                    jax.tree_util.tree_leaves(again)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_plan_splitters_balance(mesh8):
@@ -384,9 +418,9 @@ def test_dist_group_aggregate_zipf_replan(mesh8):
     assert got == expect
 
 
-def test_dist_hash_join_pallas_local(mesh8):
-    """The Pallas local path: psort table sort + direct band probe under
-    shard_map (interpret mode on CPU), incl. the 0xFFFFFFFF edge key."""
+def test_dist_hash_join_edge_keys(mesh8):
+    """The local sorted-table search, incl. the 0 and 0xFFFFFFFF edge
+    keys."""
     from cl_ops_tpu.parallel.join import dist_hash_join
     import jax.numpy as jnp
     rng = np.random.RandomState(52)
@@ -404,8 +438,7 @@ def test_dist_hash_join_pallas_local(mesh8):
     for unique_build in (True, False):
         out = dist_hash_join(
             jnp.asarray(dim_keys), jnp.asarray(dim_vals), jnp.asarray(fact),
-            mesh8, capacity_build=nb, capacity_probe=len(fact),
-            use_pallas=True, unique_build=unique_build)
+            mesh8, capacity_build=nb, capacity_probe=len(fact), unique_build=unique_build)
         got, vals = np.asarray(out[0]), np.asarray(out[1])
         expect = np.isin(fact, dim_keys)
         if unique_build:
@@ -415,7 +448,7 @@ def test_dist_hash_join_pallas_local(mesh8):
         np.testing.assert_array_equal(vals[expect], fact[expect] * 3 + 1)
 
 
-def test_dist_group_aggregate_pallas_local(mesh8):
+def test_dist_group_aggregate_edge_keys(mesh8):
     from cl_ops_tpu.parallel.aggregate import dist_group_aggregate
     import jax.numpy as jnp
     rng = np.random.RandomState(53)
@@ -424,7 +457,7 @@ def test_dist_group_aggregate_pallas_local(mesh8):
     vals = rng.randint(1, 10, size=n).astype(np.int32)
     gk, table, cnt = dist_group_aggregate(
         jnp.asarray(keys), jnp.asarray(vals), mesh8,
-        num_groups=64, capacity=n, agg="sum", use_pallas=True)
+        num_groups=64, capacity=n, agg="sum")
     gk = np.asarray(gk).reshape(8, 64)
     table = np.asarray(table).reshape(8, 64)
     cnt = np.asarray(cnt).reshape(8)
@@ -544,8 +577,7 @@ def test_dist_hash_join_defer_jit(mesh8):
     bv = (bk * 2 + 1).astype(np.int32)
     pk = rng.randint(0, 2 * nb, size=8 * 256).astype(np.int32)
     fn = jax.jit(lambda b, v, p: dist_hash_join(
-        b, v, p, mesh8, capacity_build=nb, capacity_probe=len(pk),
-        use_pallas=False, check="defer"))
+        b, v, p, mesh8, capacity_build=nb, capacity_probe=len(pk), check="defer"))
     found, vals, dropped = fn(jnp.asarray(bk), jnp.asarray(bv),
                               jnp.asarray(pk))
     assert all(int(np.asarray(d).sum()) == 0 for d in dropped)
@@ -564,7 +596,7 @@ def test_dist_hash_join_defer_reports_overflow(mesh8):
     out = dist_hash_join(
         jnp.asarray(np.arange(8 * 8, dtype=np.int32)),
         jnp.asarray(np.zeros(8 * 8, np.int32)), jnp.asarray(pk), mesh8,
-        capacity_build=64, capacity_probe=4, use_pallas=False,
+        capacity_build=64, capacity_probe=4,
         check="defer")
     dropped = out[-1]
     assert int(np.asarray(dropped[1]).sum()) > 0
@@ -578,8 +610,7 @@ def test_dist_group_aggregate_defer_jit(mesh8):
     keys = rng.randint(0, 100, size=n).astype(np.int32)
     vals = rng.randint(0, 50, size=n).astype(np.int32)
     fn = jax.jit(lambda k, v: dist_group_aggregate(
-        k, v, mesh8, num_groups=256, capacity=n, agg="sum",
-        use_pallas=False, check="defer"))
+        k, v, mesh8, num_groups=256, capacity=n, agg="sum", check="defer"))
     gk, table, cnt, dropped = fn(jnp.asarray(keys), jnp.asarray(vals))
     assert int(np.asarray(dropped).sum()) == 0
     got = {}
@@ -592,11 +623,11 @@ def test_dist_group_aggregate_defer_jit(mesh8):
     assert got == expect
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_dist_group_aggregate_cols(mesh8, use_pallas):
+@pytest.mark.parametrize("partition", ["hash", "range"])
+def test_dist_group_aggregate_cols(mesh8, partition):
     """Multi-measure distributed GROUP BY: one shuffle carries every
-    measure, every agg matches the numpy oracle (Pallas local path runs
-    interpret-mode off-TPU)."""
+    measure, every agg matches the numpy oracle under either partition
+    plan."""
     import jax.numpy as jnp
     from cl_ops_tpu.parallel.aggregate import dist_group_aggregate_cols
     rng = np.random.RandomState(83)
@@ -608,7 +639,7 @@ def test_dist_group_aggregate_cols(mesh8, use_pallas):
         jnp.asarray(keys), (jnp.asarray(v1), jnp.asarray(v1),
                             jnp.asarray(v2), jnp.asarray(v2)),
         ("sum", "min", "max", "count"), mesh8, num_groups=128,
-        capacity=n, use_pallas=use_pallas)
+        capacity=n, partition=partition)
     gk, cnt = np.asarray(gk), np.asarray(cnt)
     s1, mn1, mx2, c2 = (np.asarray(x) for x in (s1, mn1, mx2, c2))
     per = len(gk) // 8
@@ -633,8 +664,7 @@ def test_dist_group_aggregate_cols_defer_jit(mesh8):
     keys = rng.randint(0, 40, size=n).astype(np.int32)
     v1 = rng.randint(0, 50, size=n).astype(np.int32)
     fn = jax.jit(lambda k, a: dist_group_aggregate_cols(
-        k, (a, a), ("sum", "mean"), mesh8, num_groups=64, capacity=n,
-        use_pallas=False, check="defer"))
+        k, (a, a), ("sum", "mean"), mesh8, num_groups=64, capacity=n, check="defer"))
     gk, (s1, m1), cnt, dropped = fn(jnp.asarray(keys), jnp.asarray(v1))
     assert int(np.asarray(dropped).sum()) == 0
     gk, cnt = np.asarray(gk), np.asarray(cnt)

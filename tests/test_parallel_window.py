@@ -41,9 +41,8 @@ def test_dist_window_cols_matches_single_chip(mesh8, n, n_keys):
     values = tuple(vals if a not in ("count", "row_number", "rank",
                                      "dense_rank") else None
                    for a in ALL_AGGS)
-    ref = window_cols(keys, order, values, ALL_AGGS, use_pallas=False)
-    got = parallel.dist_window_cols(keys, order, values, ALL_AGGS, mesh8,
-                                    use_pallas=False)
+    ref = window_cols(keys, order, values, ALL_AGGS)
+    got = parallel.dist_window_cols(keys, order, values, ALL_AGGS, mesh8)
     for a, r, g in zip(ALL_AGGS, ref, got):
         np.testing.assert_allclose(np.asarray(g), np.asarray(r), rtol=1e-6,
                                     err_msg=f"agg {a}")
@@ -60,9 +59,8 @@ def test_dist_window_partition_straddles_chips(mesh8):
     vals = np.arange(n, dtype=np.uint32) % 97
     aggs = ("sum", "row_number", "lag", "lead")
     values = (vals, None, vals, vals)
-    ref = window_cols(keys, order, values, aggs, use_pallas=False)
-    got = parallel.dist_window_cols(keys, order, values, aggs, mesh8,
-                                    use_pallas=False)
+    ref = window_cols(keys, order, values, aggs)
+    got = parallel.dist_window_cols(keys, order, values, aggs, mesh8)
     for a, r, g in zip(aggs, ref, got):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(r),
                                       err_msg=f"agg {a}")
@@ -70,15 +68,13 @@ def test_dist_window_partition_straddles_chips(mesh8):
 
 def test_dist_window_exclusive_and_sorted_output(mesh8):
     keys, order, vals = _case(8 * 40, 4, 11)
-    ref = window_cols(keys, order, (vals,), ("sum",), exclusive=True,
-                      use_pallas=False)
+    ref = window_cols(keys, order, (vals,), ("sum",), exclusive=True)
     got = parallel.dist_window_cols(keys, order, (vals,), ("sum",), mesh8,
-                                    exclusive=True, use_pallas=False)
+                                    exclusive=True)
     np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(ref[0]))
 
     (sums,), row_src = parallel.dist_window_cols(
-        keys, order, (vals,), ("sum",), mesh8, exclusive=True,
-        use_pallas=False, sorted_output=True)
+        keys, order, (vals,), ("sum",), mesh8, exclusive=True, sorted_output=True)
     restored = np.zeros_like(np.asarray(sums))
     restored[np.asarray(row_src)] = np.asarray(sums)
     np.testing.assert_array_equal(restored, np.asarray(ref[0]))
@@ -91,21 +87,18 @@ def test_dist_window_u64_keys(mesh8):
     keys = (rng.randint(0, 3, size=n).astype(np.uint64) << np.uint64(40)
             | np.uint64(123))
     vals = rng.randint(0, 100, size=n).astype(np.int32)
-    ref = window_cols(keys, None, (vals,), ("sum",), use_pallas=False)
-    got = parallel.dist_window_cols(keys, None, (vals,), ("sum",), mesh8,
-                                    use_pallas=False)
+    ref = window_cols(keys, None, (vals,), ("sum",))
+    got = parallel.dist_window_cols(keys, None, (vals,), ("sum",), mesh8)
     np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(ref[0]))
 
 
-def test_dist_window_pallas_local_path(mesh8):
-    # per-chip shards of 1024 rows ride the interpret-Pallas local sorts
+def test_dist_window_large_shards(mesh8):
+    # per-chip shards of 1024 rows
     n = 8 * 1024
     keys, order, vals = _case(n, 5, 17)
-    ref = window_cols(keys, order, (vals, None), ("sum", "row_number"),
-                      use_pallas=False)
+    ref = window_cols(keys, order, (vals, None), ("sum", "row_number"))
     got = parallel.dist_window_cols(keys, order, (vals, None),
-                                    ("sum", "row_number"), mesh8,
-                                    use_pallas=True)
+                                    ("sum", "row_number"), mesh8)
     np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(ref[0]))
     np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(ref[1]))
 
@@ -129,9 +122,8 @@ def test_dist_top_k_matches_single_chip(mesh8, largest):
     vals = rng.randint(0, 300, size=n).astype(np.uint32)  # heavy ties
     pay = rng.randint(-100, 100, size=n).astype(np.int32)
     k = 37
-    ref = top_k(vals, k, pay, largest=largest, use_pallas=False)
-    got = parallel.dist_top_k(vals, k, mesh8, pay, largest=largest,
-                              use_pallas=False)
+    ref = top_k(vals, k, pay, largest=largest)
+    got = parallel.dist_top_k(vals, k, mesh8, pay, largest=largest)
     np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(ref[0]))
     np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(ref[1]))
 
@@ -141,7 +133,7 @@ def test_dist_top_k_k_exceeds_shard(mesh8):
     n = 8 * 16
     vals = np.random.RandomState(9).randint(0, 50, size=n).astype(np.uint32)
     k = 40
-    got = parallel.dist_top_k(vals, k, mesh8, use_pallas=False)
+    got = parallel.dist_top_k(vals, k, mesh8)
     np.testing.assert_array_equal(np.asarray(got[0]), np.sort(vals)[:k])
 
 
@@ -149,8 +141,7 @@ def test_dist_top_k_positions_payload(mesh8):
     n = 8 * 64
     vals = np.random.RandomState(4).randint(0, 1000, n).astype(np.uint32)
     pos = iota_sharded(n, mesh8)
-    got_v, got_p = parallel.dist_top_k(jnp.asarray(vals), 10, mesh8, pos,
-                                       use_pallas=False)
+    got_v, got_p = parallel.dist_top_k(jnp.asarray(vals), 10, mesh8, pos)
     order = np.argsort(vals, kind="stable")[:10]
     np.testing.assert_array_equal(np.asarray(got_p), order)
     np.testing.assert_array_equal(np.asarray(got_v), vals[order])
@@ -169,8 +160,7 @@ def test_dist_top_k_validation(mesh8):
 def test_dist_distinct(mesh8):
     n = 8 * 250
     keys = np.random.RandomState(31).randint(0, 97, n).astype(np.uint32)
-    uniq, cnt = parallel.dist_distinct(keys, mesh8, capacity=128,
-                                       use_pallas=False)
+    uniq, cnt = parallel.dist_distinct(keys, mesh8, capacity=128)
     expect = np.unique(keys)
     assert int(cnt) == len(expect)
     np.testing.assert_array_equal(np.asarray(uniq)[: int(cnt)], expect)
@@ -179,6 +169,5 @@ def test_dist_distinct(mesh8):
 def test_dist_distinct_skewed_one_value(mesh8):
     n = 8 * 32
     keys = np.full(n, 42, np.uint32)
-    uniq, cnt = parallel.dist_distinct(keys, mesh8, capacity=16,
-                                       use_pallas=False)
+    uniq, cnt = parallel.dist_distinct(keys, mesh8, capacity=16)
     assert int(cnt) == 1 and int(np.asarray(uniq)[0]) == 42

@@ -28,7 +28,7 @@ def test_exclusive_matches_serial(impl, n):
     rng = np.random.RandomState(42 + n)
     # Values < 128 to delay overflow, like clo_scan_bench.c:219-224.
     x = rng.randint(0, 128, size=n).astype(np.uint32)
-    s = scan_mod.scan_new(impl, options="block_rows=8")
+    s = scan_mod.scan_new(impl, options="block=256")
     out = s.scan_with_host_data(x)
     expect = host_exclusive_scan(x, np.uint64)
     assert out.dtype == np.uint64
@@ -39,7 +39,7 @@ def test_exclusive_matches_serial(impl, n):
 def test_inclusive(impl):
     rng = np.random.RandomState(3)
     x = rng.randint(0, 100, size=1500).astype(np.uint32)
-    s = scan_mod.scan_new(impl, options="block_rows=8")
+    s = scan_mod.scan_new(impl, options="block=256")
     out = s.scan_with_host_data(x, exclusive=False)
     np.testing.assert_array_equal(out, np.cumsum(x.astype(np.uint64)))
 
@@ -55,7 +55,7 @@ def test_dtype_pairs(elem, sum_):
         x = rng.randint(0, 100, size=999).astype(ed)
     else:
         x = rng.rand(999).astype(ed)
-    s = scan_mod.scan_new("blelloch", options="block_rows=8",
+    s = scan_mod.scan_new("blelloch", options="block=256",
                           elem_dtype=elem, sum_dtype=sum_)
     out = s.scan_with_host_data(x)
     sd = canonicalize(sum_)
@@ -70,7 +70,7 @@ def test_overflow_wraps_like_sum_dtype():
     """Sums exceeding the sum dtype wrap modularly (the reference *detects*
     overflow host-side, clo_scan_bench.c:246-271; device behavior is wrap)."""
     x = np.full(10, 200, np.uint8)
-    s = scan_mod.scan_new("blelloch", options="block_rows=8",
+    s = scan_mod.scan_new("blelloch", options="block=256",
                           elem_dtype="uchar", sum_dtype="uchar")
     out = s.scan_with_host_data(x)
     expect = (np.arange(10) * 200 % 256).astype(np.uint8)
@@ -88,8 +88,9 @@ def test_introspection():
     s = scan_mod.scan_new("blelloch")
     assert s.num_kernels == 3
     assert s.kernel_name(2) == "block_scan_base_add"
-    assert s.vmem_usage("block_scan_base_add", 1 << 20) > 0
-    assert s.vmem_usage("block_sums", 1 << 20) == 0
+    # one program holds a 4096-element block of u32 inputs and u64 sums
+    assert s.localmem_usage("block_scan_base_add", 1 << 20) == 4096 * 12
+    assert s.localmem_usage("block_sums", 1 << 20) == 0
     assert "blelloch" in scan_mod.scan_names()
     assert "xla" in scan_mod.scan_names()
 

@@ -3,8 +3,7 @@
 Same strategy as the plain-scan tests (serial oracle with explicit dtype
 semantics, `src/benchmarks/clo_scan_bench.c:246-271`), extended with the
 segment dimension: random flag densities, all-flag/no-flag edges, flags
-straddling block boundaries, and both the Pallas (interpret on CPU) and XLA
-paths.
+straddling segment runs, and value dtypes.
 """
 
 import numpy as np
@@ -51,26 +50,26 @@ def make_case(n, density, seed, dtype=np.uint32, hi=1000):
     return x, flags
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32])
 @pytest.mark.parametrize("exclusive", [True, False])
 @pytest.mark.parametrize("n,density", [(1, 0.5), (7, 0.3), (128, 0.1),
                                        (1000, 0.05), (4096, 0.02),
                                        (70000, 0.001)])
-def test_matches_serial(n, density, exclusive, use_pallas):
-    x, flags = make_case(n, density, seed=n + int(density * 100))
-    out = np.asarray(segmented_scan_1d(
-        x, flags, exclusive=exclusive, block_rows=8, use_pallas=use_pallas))
-    expect = host_segmented_scan(x, flags, np.uint32, exclusive)
+def test_matches_serial(n, density, exclusive, dtype):
+    x, flags = make_case(n, density, seed=n + int(density * 100),
+                         dtype=dtype)
+    out = np.asarray(segmented_scan_1d(x, flags, exclusive=exclusive))
+    expect = host_segmented_scan(x, flags, dtype, exclusive)
     np.testing.assert_array_equal(out, expect)
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("flag_dtype", [np.int32, np.bool_])
 @pytest.mark.parametrize("density", [0.0, 1.0])
-def test_degenerate_flags(density, use_pallas):
+def test_degenerate_flags(density, flag_dtype):
     """No flags == plain scan; all flags == exclusive gives zeros."""
     x, flags = make_case(3000, density, seed=9)
-    out = np.asarray(segmented_scan_1d(
-        x, flags, exclusive=True, block_rows=8, use_pallas=use_pallas))
+    out = np.asarray(segmented_scan_1d(x, flags.astype(flag_dtype),
+                                       exclusive=True))
     if density == 0.0:
         expect = (np.cumsum(x, dtype=np.uint32) - x).astype(np.uint32)
     else:
@@ -78,16 +77,15 @@ def test_degenerate_flags(density, use_pallas):
     np.testing.assert_array_equal(out, expect)
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_block_boundary_runs(use_pallas):
-    """Segments spanning multiple kernel blocks exercise the SMEM carry."""
-    n = 8 * 128 * 5  # 5 blocks at block_rows=8
+@pytest.mark.parametrize("op", ["add", "max"])
+def test_block_boundary_runs(op):
+    """Long runs, adjacent flags and a run starting at the last row."""
+    n = 8 * 128 * 5
     x = np.ones(n, np.uint32)
     flags = np.zeros(n, np.int32)
-    flags[[0, 1500, 1501, 4000]] = 1  # mid-block, adjacent, cross-block runs
-    out = np.asarray(segmented_scan_1d(
-        x, flags, exclusive=False, block_rows=8, use_pallas=use_pallas))
-    expect = host_segmented_scan(x, flags, np.uint32, exclusive=False)
+    flags[[0, 1500, 1501, 4000, n - 1]] = 1
+    out = np.asarray(segmented_scan_1d(x, flags, op=op, exclusive=False))
+    expect = host_segmented_scan(x, flags, np.uint32, exclusive=False, op=op)
     np.testing.assert_array_equal(out, expect)
 
 
@@ -98,7 +96,7 @@ def test_dtypes(dtype, sum_dtype):
     """Widening, 64-bit XLA fallback, and float paths."""
     x, flags = make_case(5000, 0.02, seed=11, dtype=dtype, hi=100)
     out = np.asarray(segmented_scan_1d(
-        x, flags, sum_dtype=sum_dtype, exclusive=True, block_rows=8))
+        x, flags, sum_dtype=sum_dtype, exclusive=True))
     expect = host_segmented_scan(x, flags, sum_dtype, exclusive=True)
     if np.dtype(sum_dtype).kind == "f":
         # Tree-scan association order differs from the serial oracle.
@@ -107,22 +105,21 @@ def test_dtypes(dtype, sum_dtype):
         np.testing.assert_array_equal(out, expect)
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("density", [0.03, 0.5])
 @pytest.mark.parametrize("exclusive", [True, False])
 @pytest.mark.parametrize("op", ["min", "max"])
 @pytest.mark.parametrize("dtype", [np.uint32, np.int32, np.float32])
-def test_running_min_max(op, dtype, exclusive, use_pallas):
+def test_running_min_max(op, dtype, exclusive, density):
     if np.dtype(dtype).kind in "iu":
         rng = np.random.RandomState(21)
         lo = 0 if np.dtype(dtype).kind == "u" else -(2 ** 30)
         x = rng.randint(lo, 2 ** 30, size=3000).astype(dtype)
-        flags = (rng.rand(3000) < 0.03).astype(np.int32)
+        flags = (rng.rand(3000) < density).astype(np.int32)
     else:
-        x, flags = make_case(3000, 0.03, seed=21, dtype=dtype)
+        x, flags = make_case(3000, density, seed=21, dtype=dtype)
         x = (x - 0.5).astype(dtype)
-    out = np.asarray(segmented_scan_1d(
-        x, flags, op=op, exclusive=exclusive, block_rows=8,
-        use_pallas=use_pallas))
+    out = np.asarray(segmented_scan_1d(x, flags, op=op,
+                                       exclusive=exclusive))
     expect = host_segmented_scan(x, flags, dtype, exclusive, op)
     np.testing.assert_array_equal(out, expect)
 
@@ -142,8 +139,7 @@ def test_wrapping_mod32():
     """Per-segment sums that overflow u32 wrap exactly like the oracle."""
     x, flags = make_case(4000, 0.005, seed=13, dtype=np.uint32,
                          hi=2**31 - 1)
-    out = np.asarray(segmented_scan_1d(x, flags, exclusive=False,
-                                       block_rows=8))
+    out = np.asarray(segmented_scan_1d(x, flags, exclusive=False))
     expect = host_segmented_scan(x, flags, np.uint32, exclusive=False)
     np.testing.assert_array_equal(out, expect)
 

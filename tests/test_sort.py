@@ -14,15 +14,14 @@ from cl_ops_tpu.ops.sort import keys as keymod
 
 ALL_IMPLS = sort_mod.sort_names()
 SMALL_OPTS = {
-    "sbitonic": "block_rows=8",
-    # single_launch=0 keeps the multi-launch fused schedule covered at test
-    # sizes (the auto rule routes everything under 2M elems to the
-    # whole-VMEM single-launch kernel, which has its own tests below)
-    "abitonic": "block_rows=8,single_launch=0",
-    "satradix": "block_rows=8,scatter=xla",
+    "sbitonic": None,
+    "abitonic": None,
+    "satradix": "block=256",
     "gselect": "chunk=512",
     "xla": None,
 }
+ALL_DTYPES = ["char", "ushort", "int", "uint", "long", "ulong", "half",
+              "float", "double"]
 
 
 def _rand(dt, n, seed):
@@ -54,19 +53,9 @@ def test_sort_u32(impl, n):
     np.testing.assert_array_equal(out, np.sort(x))
 
 
-# Full dtype matrix on the cheap impls; Pallas impls sample 3 dtypes
-# (interpret mode is slow; the limb machinery is shared anyway).
-@pytest.mark.parametrize("impl,dt", [
-    (i, d) for i in ("xla", "gselect")
-    for d in ["char", "ushort", "int", "uint", "long", "ulong", "half",
-              "float", "double"]
-] + [
-    # Pallas impls share the limb machinery; sample key dtypes. sbitonic is
-    # one-launch-per-step and slow under interpret, so it only runs the u32
-    # matrix above.
-    (i, d) for i in ("abitonic", "satradix")
-    for d in ["int", "ulong", "float"]
-])
+@pytest.mark.parametrize("impl", ["xla", "gselect", "abitonic", "sbitonic",
+                                  "satradix"])
+@pytest.mark.parametrize("dt", ALL_DTYPES)
 def test_sort_all_dtypes(impl, dt):
     from cl_ops_tpu.core.dtypes import canonicalize
     x = _rand(canonicalize(dt), 800, 7)
@@ -130,10 +119,8 @@ def test_sort_with_duplicates_and_extremes(impl):
 def test_satradix_radix_option():
     """radix= option parity (clo_sort_satradix.c:353)."""
     x = _rand(np.uint32, 1000, 13)
-    # radix=256 is supported but traces 256 per-bin block scans — too slow
-    # for the CPU interpret suite.
-    for radix in (4, 64):
-        s = sort_mod.sort_new("satradix", f"block_rows=8,radix={radix}")
+    for radix in (4, 64, 256):
+        s = sort_mod.sort_new("satradix", f"block=256,radix={radix}")
         np.testing.assert_array_equal(s.sort_with_host_data(x), np.sort(x))
 
 
@@ -141,18 +128,19 @@ def test_satradix_composed_scan():
     """scan= option composes a Scan object (clo_sort_satradix.c:296-300)."""
     x = _rand(np.uint32, 2000, 17)
     s = sort_mod.sort_new("satradix",
-                          "block_rows=8,scan=blelloch,scanblock_rows=8")
+                          "block=256,scan=blelloch,scanblock=256")
     np.testing.assert_array_equal(s.sort_with_host_data(x), np.sort(x))
 
 
 def test_introspection():
     s = sort_mod.sort_new("abitonic")
     assert s.in_place
-    assert s.num_kernels == 3
-    assert s.kernel_name(0) == "block_sort"
-    assert s.vmem_usage("block_sort", 1 << 20) > 0
+    assert s.num_kernels == 1
+    assert s.kernel_name(0) == "network"
+    assert s.localmem_usage("network", 1 << 20) == 0
     r = sort_mod.sort_new("satradix")
     assert not r.in_place
+    assert r.num_kernels == 3
     assert set(sort_mod.sort_names()) >= {
         "sbitonic", "abitonic", "gselect", "satradix", "xla"}
 
@@ -193,95 +181,40 @@ def test_sort_key_value_float_values():
     assert got == expect
 
 
-def test_autotune_candidates_and_cache(tmp_path, monkeypatch):
-    """Geometry candidates respect shape/VMEM bounds; winners persist."""
-    from cl_ops_tpu.ops.sort import autotune as at
-    cands = at.candidate_geometries(16384, 1)
-    assert all(br <= 16384 and br <= mr <= 16384 for br, mr in cands)
-    assert len(cands) >= 4
-    # tiny shapes clamp
-    assert at.candidate_geometries(8, 1) == [(8, 8)]
-    # VMEM bound prunes fat merges for many arrays
-    fat = at.candidate_geometries(1 << 15, 4)
-    assert all(4 * mr * 128 * 4 * 3 <= 96 * 1024 * 1024 for _, mr in fat)
-    # cache: on CPU every compiled candidate fails -> fallback geometry,
-    # persisted and reused without re-measurement
-    monkeypatch.setenv(at._CACHE_ENV, str(tmp_path / "tune.json"))
-    at._mem_cache.clear()
-    geo = at.tune_geometry(64, 1)
-    assert geo == (64, 64, None)
-    at._mem_cache.clear()
-    assert at.tune_geometry(64, 1) == geo  # from disk
-
-
-def test_abitonic_autotune_option_interpret():
-    """autotune=1 is a no-op under interpret mode (falls to the model)."""
-    x = _rand(np.uint32, 600, 3)
-    s = sort_mod.sort_new("abitonic", "autotune=1,block_rows=8")
-    np.testing.assert_array_equal(s.sort_with_host_data(x), np.sort(x))
-
-
-def test_satradix_bitonic_scatter():
-    """Default scatter=bitonic placement (sort-by-dest) matches np.sort."""
+def test_satradix_block_option():
+    """block= sets the ranking block; any power of two gives the same
+    stable order (keys and the values riding them)."""
     x = _rand(np.uint32, 700, 17)
-    s = sort_mod.sort_new("satradix", "block_rows=8,radix=16")
-    np.testing.assert_array_equal(s.sort_with_host_data(x), np.sort(x))
     v = np.arange(700, dtype=np.int32)
-    sk, sv = s.sort_with_host_data(x, v)
-    np.testing.assert_array_equal(x[sv], sk)
+    for block in (64, 1024):
+        s = sort_mod.sort_new("satradix", f"block={block},radix=16")
+        sk, sv = s.sort_with_host_data(x, v)
+        np.testing.assert_array_equal(sk, np.sort(x))
+        np.testing.assert_array_equal(sv, np.argsort(x, kind="stable"))
+    with pytest.raises(ValueError):
+        sort_mod.sort_new("satradix", "block=100")
 
 
-@pytest.mark.parametrize("dt", ["uint", "int", "ulong", "float"])
-def test_abitonic_single_launch(dt):
-    """The whole-VMEM one-kernel sort (launch-bound small-n path)."""
-    from cl_ops_tpu.core.dtypes import canonicalize
-    x = _rand(canonicalize(dt), 5000, 11)
-    s = sort_mod.sort_new("abitonic", "single_launch=1", elem_dtype=dt)
-    out = s.sort_with_host_data(x)
-    np.testing.assert_array_equal(out, np.sort(x))
-
-
-def test_abitonic_single_launch_kv():
-    x = _rand(np.uint32, 4096, 12)
-    vals = np.arange(4096, dtype=np.int32)
-    s = sort_mod.sort_new("abitonic", "single_launch=1")
+@pytest.mark.parametrize("impl", ["abitonic", "sbitonic"])
+@pytest.mark.parametrize("n", [2, 3, 513, 1024])
+def test_bitonic_kv_sizes(impl, n):
+    """Pow-2 and padded sizes: the i32-max pad rows never displace a real
+    all-max key row, and values stay attached to their keys."""
+    x = _rand(np.uint32, n, 21 + n)
+    x[::3] = np.uint32(0xFFFFFFFF)
+    vals = np.arange(n, dtype=np.int32)
+    s = sort_mod.sort_new(impl)
     out, vout = s.sort_with_host_data(x, vals)
     np.testing.assert_array_equal(out, np.sort(x))
     np.testing.assert_array_equal(x[vout], out)
+    np.testing.assert_array_equal(np.sort(vout), vals)
 
 
-def test_abitonic_single_launch_auto_matches_forced():
-    """The auto rule (small fused problems) and the forced option agree."""
-    x = _rand(np.uint32, 3 * 1024, 13)
-    auto = sort_mod.sort_new("abitonic", "block_rows=8")
-    forced = sort_mod.sort_new("abitonic", "block_rows=8,single_launch=1")
-    np.testing.assert_array_equal(auto.sort_with_host_data(x),
-                                  forced.sort_with_host_data(x))
-
-
-def test_dma_scatter_chunk_copy():
-    """Blocked-write run copy (SURVEY §7 binned-DMA scatter half): runs
-    land at quantized destinations, tails and slack become sentinels."""
-    import jax.numpy as jnp
-    from cl_ops_tpu.ops.sort import dma_scatter as ds
-    rng = np.random.RandomState(70)
-    n = 32 * ds.CHUNK
-    x = rng.randint(0, 1 << 30, size=n).astype(np.int32)
-    cuts = np.sort(rng.choice(np.arange(1, n), size=21, replace=False))
-    starts = np.concatenate([[0], cuts]).astype(np.int32)
-    lengths = (np.concatenate([cuts, [n]]) - starts).astype(np.int32)
-    qlen = ((lengths + ds.CHUNK - 1) // ds.CHUNK) * ds.CHUNK
-    qstarts = (np.cumsum(qlen) - qlen).astype(np.int32)
-    n_chunks = n // ds.CHUNK + len(lengths)
-    params = ds.plan_run_chunks(jnp.asarray(starts), jnp.asarray(qstarts),
-                                jnp.asarray(lengths),
-                                n_chunks_static=n_chunks)
-    (out,) = ds.chunk_copy((jnp.asarray(x).reshape(-1, 128),), params,
-                           n_chunks=n_chunks, interpret=True)
-    out = np.asarray(out).reshape(-1)
-    for s, q, l in zip(starts, qstarts, lengths):
-        np.testing.assert_array_equal(out[q:q + l], x[s:s + l])
-        qtop = q + ((l + ds.CHUNK - 1) // ds.CHUNK) * ds.CHUNK
-        np.testing.assert_array_equal(out[q + l:qtop], ds._SENT)
-    np.testing.assert_array_equal(out[int(qstarts[-1] + qlen[-1]):],
-                                  ds._SENT)
+def test_bitonic_network_steps():
+    """The network over n = 2^k has k(k+1)/2 compare-exchange steps, the
+    reference sbitonic's launch count (clo_sort_sbitonic.c:102-118)."""
+    from cl_ops_tpu.ops.sort.bitonic import network
+    for k in range(1, 11):
+        steps = list(network(1 << k))
+        assert len(steps) == k * (k + 1) // 2
+        assert steps[-1] == (1 << k, 1)

@@ -26,34 +26,35 @@ def oracle_topk(values, k, payload=None, largest=False):
     return values[idx], payload[idx]
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("k", [37, 1000])
 @pytest.mark.parametrize("largest", [False, True])
-def test_topk_uniform(largest, use_pallas):
+def test_topk_uniform(largest, k):
     rng = np.random.RandomState(0)
-    n, k = 200_000, 37
+    n = 200_000
     vals = rng.randint(0, 1 << 30, size=n).astype(np.uint32)
     payload = np.arange(n, dtype=np.int32)
     got_v, got_p = top_k(vals, k, payload, largest=largest,
-                         use_pallas=use_pallas, sample_size=4096)
+                         sample_size=4096)
     ev, ep = oracle_topk(vals, k, payload, largest)
     np.testing.assert_array_equal(np.asarray(got_v), ev)
     np.testing.assert_array_equal(np.asarray(got_p), ep)
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_topk_duplicate_flood_exact_fallback(use_pallas):
+@pytest.mark.parametrize("largest", [False, True])
+def test_topk_duplicate_flood_exact_fallback(largest):
     """90% of rows equal the minimum: survivors overflow any sane buffer,
     the lax.cond exact branch must fire and still be right."""
     rng = np.random.RandomState(1)
     n, k = 65536, 10
-    vals = np.zeros(n, np.uint32)
+    flood = np.uint32(0xFFFFFFFF) if largest else np.uint32(0)
+    vals = np.full(n, flood, np.uint32)
     hi = rng.randint(1, 1 << 20, size=n // 10).astype(np.uint32)
     vals[: n // 10] = hi
     rng.shuffle(vals)
     payload = np.arange(n, dtype=np.int32)
-    got_v, got_p = top_k(vals, k, payload, use_pallas=use_pallas,
-                         sample_size=1024, cap=2048)
-    ev, ep = oracle_topk(vals, k, payload)
+    got_v, got_p = top_k(vals, k, payload, largest=largest,
+                         sample_size=1024)
+    ev, ep = oracle_topk(vals, k, payload, largest)
     np.testing.assert_array_equal(np.asarray(got_v), ev)
     np.testing.assert_array_equal(np.asarray(got_p), ep)
 
@@ -105,11 +106,12 @@ def test_topk_bad_k():
         top_k(np.ones(4, np.uint32), 0)
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_distinct(use_pallas):
+@pytest.mark.parametrize("dtype", [np.uint32, np.int64])
+def test_distinct(dtype):
     rng = np.random.RandomState(6)
-    keys = rng.randint(0, 100, size=5000).astype(np.uint32)
-    uq, cnt = distinct(keys, capacity=256, use_pallas=use_pallas)
+    keys = rng.randint(-50 if dtype == np.int64 else 0, 100,
+                       size=5000).astype(dtype)
+    uq, cnt = distinct(keys, capacity=256)
     expect = np.unique(keys)
     assert int(cnt) == len(expect)
     np.testing.assert_array_equal(np.asarray(uq)[: int(cnt)], expect)
